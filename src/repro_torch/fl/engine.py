@@ -1,0 +1,251 @@
+"""Eager FL simulation engine (counterpart of ``repro.fl.engine``, its dense
+path on the device data store).
+
+The paper's per-round protocol (§II, Fig. 1) — policy, autonomous Bernoulli
+participation, Δ_k forced transmission, bandwidth reservation, energy ledger
+(eq. 5), local SGD, masked aggregation (eq. 3), broadcast — runs as a Python
+loop over rounds whose tensors all stay on the device; the only readback is
+the stacked per-round trace at the end.  PyTorch is eager, so the JAX
+package's ``lax.scan`` and host-loop engines collapse into this one loop.
+
+* **PRNG** — participation draws ``uniform(fold_in(PRNGKey(seed), t), (K,))``
+  and minibatches come from ``fold_in(data_key, t)``, bit for bit the JAX
+  streams (:mod:`repro_torch.random`), so both packages realize the same
+  masks and train on the same examples.
+* **policies** — a ``state_free`` policy is solved once for all rounds (the
+  JAX engine's hoisted ``vmap``); any other policy runs each round.
+* **evals** — at ``t % eval_every == 0 or t == rounds - 1``.
+
+Ported: ``data_path`` ``"device"`` (and ``"auto"``, which resolves to it),
+``data_stream="round"``, ``participation`` ``"dense"`` (and ``"auto"``,
+which resolves to dense here), both ``local_mode`` values, ``max_staleness``
+and ``aging_boost``.  Every other ``SimConfig`` setting raises
+``NotImplementedError`` naming the field.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .. import random as jr
+from .. import resolve_device
+from ..core.channel import CellConfig, rate_nats
+from ..core.selection import as_policy_fn
+from ..data.device import data_stream_key, from_client_datasets, sample_round
+from ..data.synthetic import Dataset
+from ..optim import Optimizer, sgd
+from .state import (FLState, broadcast_to_participants, init_fl_state,
+                    masked_aggregate, pseudo_gradients)
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """The JAX ``SimConfig``'s fields and defaults; see the module docstring
+    for which settings this port runs."""
+
+    rounds: int = 50
+    local_iters: int = 5          # paper: 5 for MNIST
+    batch_size: int = 10          # paper: 10 for MNIST
+    lr: float = 0.01              # paper: 0.01
+    eval_every: int = 5
+    seed: int = 0
+    max_staleness: int | None = None   # Δ_k enforcement (None: Bernoulli)
+    aging_boost: bool = False          # raise p as staleness → Δ_k
+    eval_batch: int = 2048
+    data_path: str = "auto"
+    stream_chunk: int = 256
+    local_mode: str = "continuous"     # or "participants"
+    participation: str = "dense"
+    participant_bucket: int | None = None
+    data_stream: str = "round"
+    faults: Any = None
+    guards: Any = None
+    aggregator: Any = None
+    eval_mode: str = "inscan"
+    checkpoint_every: int | None = None
+    overflow: str = "spill"
+    metrics: Any = None
+
+
+#: settings ported only in part: field -> the values this port runs
+_PORTED = {
+    "data_path": ("auto", "device"),
+    "data_stream": ("round",),
+    "participation": ("dense", "auto"),
+    "eval_mode": ("inscan",),
+    "faults": (None,),
+    "guards": (None,),
+    "aggregator": (None,),
+    "metrics": (None,),
+    "checkpoint_every": (None,),
+    "participant_bucket": (None,),
+    "stream_chunk": (256,),
+    "overflow": ("spill",),
+}
+
+
+def check_ported(cfg: SimConfig) -> None:
+    """Raise ``NotImplementedError`` naming any setting not ported yet."""
+    for field, ok in _PORTED.items():
+        value = getattr(cfg, field)
+        if not any(value is v or value == v for v in ok):
+            raise NotImplementedError(
+                f"SimConfig.{field}={value!r} is not ported to repro_torch "
+                f"yet (ported: {', '.join(map(repr, ok))})")
+    if cfg.local_mode not in ("continuous", "participants"):
+        raise ValueError(f"unknown local_mode {cfg.local_mode!r} "
+                         "(expected continuous|participants)")
+
+
+class SimResult(NamedTuple):
+    test_acc: np.ndarray           # [n_evals]
+    test_loss: np.ndarray          # [n_evals]
+    eval_rounds: np.ndarray        # [n_evals]
+    energy_per_client: np.ndarray  # [K] cumulative Joules
+    energy_timeline: np.ndarray    # [rounds] cumulative total energy
+    participation: np.ndarray      # [rounds, K] realized decision masks
+    state: FLState
+
+
+def grant_forced_bandwidth(w: torch.Tensor, forced: torch.Tensor,
+                           num_clients: int) -> torch.Tensor:
+    """Staleness-aware bandwidth reservation: a client transmitting only
+    because its Δ_k bound expired gets at least an equal 1/K share.  When
+    Σw ≤ 1 still holds, non-forced clients keep their optimal slices; only
+    when the grant overflows the band do they shrink, proportionally, into
+    the room left.  With no forced client this is the identity."""
+    forced_f = forced.to(w.dtype)
+    granted = torch.where(forced, torch.clamp(w, min=1.0 / num_clients), w)
+    g = torch.sum(granted * forced_f)             # requested forced mass
+    b = torch.sum(w * (1.0 - forced_f))           # non-forced (optimal) mass
+    g_scale = torch.where(g > 1.0, 1.0 / torch.clamp(g, min=1e-30), 1.0)
+    room = 1.0 - torch.clamp(g, max=1.0)
+    nf_scale = torch.where(b > room, room / torch.clamp(b, min=1e-30), 1.0)
+    return torch.where(forced, granted * g_scale, w * nf_scale)
+
+
+def apply_round_decision(probs: torch.Tensor, w: torch.Tensor, t: int,
+                         h_t: torch.Tensor, state: FLState,
+                         base_key: torch.Tensor, cfg: SimConfig,
+                         cell: CellConfig, num_clients: int):
+    """Protocol Steps 3-4 + energy ledger given the round's (probs, w).
+
+    Returns ``(mask, forced, w, e_round)``; the participation draw is
+    ``uniform(fold_in(base_key, t), (K,))``.
+    """
+    K = num_clients
+    probs = probs.to(torch.float32)
+    w = w.to(torch.float32)
+    since = state.round - state.last_tx
+    if cfg.aging_boost and cfg.max_staleness is not None:
+        c = torch.clamp(since.to(torch.float32) / cfg.max_staleness, 0.0, 1.0)
+        probs = 1.0 - (1.0 - probs) * (1.0 - c * c)
+    u = jr.uniform(jr.fold_in(base_key, t), (K,), device=probs.device)
+    mask = (u < probs).to(torch.float32)
+    forced = torch.zeros(K, dtype=torch.bool, device=probs.device)
+    if cfg.max_staleness is not None:
+        stale = since >= cfg.max_staleness
+        forced = stale & (mask == 0.0)
+        mask = torch.maximum(mask, stale.to(torch.float32))
+        w = grant_forced_bandwidth(w, forced, K)
+    R = rate_nats(w, h_t, cell.tx_power_w, cell.bandwidth_hz,
+                  cell.noise_w_per_hz)
+    e_round = mask * cell.tx_power_w * cell.model_size_nats \
+        / torch.clamp(R, min=1e-30)
+    e_round = torch.where(mask > 0.0, e_round, 0.0)
+    return mask, forced, w, e_round
+
+
+def make_local_train(loss_fn: Callable, opt: Optimizer):
+    """Local SGD of all K clients at once: ``(flat [K, W], xb [K, L, B, ...],
+    yb [K, L, B], layout) -> flat``.  ``loss_fn`` takes params stacked over
+    clients and returns the ``[K]`` per-client mean losses; the gradient of
+    their sum with respect to the stacked row is each client's own gradient
+    (JAX's ``vmap(grad(loss_fn))``)."""
+
+    def local_train(flat, xb, yb, layout):
+        state = opt.init(flat)
+        for i in range(xb.shape[1]):
+            with torch.enable_grad():
+                p = flat.detach().requires_grad_(True)
+                loss = loss_fn(layout.unflatten(p), xb[:, i], yb[:, i]).sum()
+                (g,) = torch.autograd.grad(loss, p)
+            upd, state = opt.update(g, state, flat)
+            flat = flat + upd
+        return flat
+
+    return local_train
+
+
+def make_runner(loss_fn: Callable, acc_fn: Callable,
+                client_data: Sequence[Dataset], test_ds: Dataset, policy,
+                cell: CellConfig, cfg: SimConfig,
+                opt: Optimizer | None = None, device=None) -> Callable:
+    """Build the device data store once and return
+    ``runner(params, h_all, seed=None) -> SimResult``.
+
+    ``h_all`` is ``[K, rounds]``; ``device=None`` means the card.
+    """
+    check_ported(cfg)
+    device = resolve_device(device)
+    K = len(client_data)
+    T = cfg.rounds
+    policy_fn = as_policy_fn(policy)
+    hoist = getattr(policy_fn, "state_free", False)
+    opt = opt or sgd(cfg.lr)
+    local_train = make_local_train(loss_fn, opt)
+    store = from_client_datasets(client_data, device=device)
+    data_key = data_stream_key(cfg.seed, device=device)
+    test_x = test_ds.x[: cfg.eval_batch].to(device)
+    test_y = test_ds.y[: cfg.eval_batch].to(device)
+
+    @torch.no_grad()
+    def runner(params, h_all, seed: int | None = None) -> SimResult:
+        key = jr.PRNGKey(cfg.seed if seed is None else seed, device=device)
+        h_rounds = torch.as_tensor(h_all, dtype=torch.float32).to(device).T
+        state = init_fl_state(params, K, device=device)
+        layout = state.layout
+        if hoist:   # every round's (P1') solve at once
+            probs_all, w_all = policy_fn(torch.arange(T), h_rounds, None)
+        energy = torch.zeros(K, dtype=torch.float32, device=device)
+        masks, e_rounds, accs, losses, eval_rounds = [], [], [], [], []
+        for t in range(T):
+            h_t = h_rounds[t]
+            probs, w = ((probs_all[t], w_all[t]) if hoist
+                        else policy_fn(t, h_t, state))
+            mask, _, w, e_round = apply_round_decision(
+                probs, w, t, h_t, state, key, cfg, cell, K)
+            energy = energy + e_round
+            xb, yb = sample_round(store, data_key, t, cfg.local_iters,
+                                  cfg.batch_size)
+            client = local_train(state.client_params, xb, yb, layout)
+            if cfg.local_mode == "participants":
+                # only transmitting clients move; the rest keep client ==
+                # anchor, so their pseudo-gradient stays exactly zero
+                client = torch.where(mask.bool()[:, None], client,
+                                     state.client_params)
+            state = state._replace(client_params=client)
+            new_global = masked_aggregate(state.global_params,
+                                          pseudo_gradients(state), mask, K)
+            state = broadcast_to_participants(state, new_global, mask)
+            if t % cfg.eval_every == 0 or t == T - 1:
+                g = layout.unflatten(state.global_params)
+                accs.append(acc_fn(g, test_x, test_y))
+                losses.append(loss_fn(g, test_x, test_y))
+                eval_rounds.append(t)
+            masks.append(mask)
+            e_rounds.append(e_round)
+        e_round_all = torch.stack(e_rounds).cpu().numpy()
+        return SimResult(
+            test_acc=torch.stack(accs).cpu().numpy(),
+            test_loss=torch.stack(losses).cpu().numpy(),
+            eval_rounds=np.asarray(eval_rounds),
+            energy_per_client=energy.cpu().numpy(),
+            energy_timeline=np.cumsum(e_round_all.sum(axis=1)),
+            participation=torch.stack(masks).cpu().numpy(),
+            state=state)
+
+    return runner

@@ -1,0 +1,57 @@
+"""Dispatch for the port's kernels: a CUDA tensor goes to the hand-written
+kernel, a CPU tensor to its plain version in :mod:`.ref`.  Nothing else —
+no fallback from one to the other.
+
+The three modes of ``repro.kernels.ops`` all launch the one K1 kernel
+(:func:`.fl_aggregate.fl_aggregate_cuda`) with folded scalars:
+
+* :func:`fl_aggregate` — dense rows = K, a {0, 1} mask, ``inv_k = 1/R``;
+* :func:`fl_aggregate_subset` — a padded participant bucket, validity/K
+  folded into the weights, ``inv_k = 1``;
+* :func:`fl_aggregate_guarded` — fully folded weights, ``inv_k = 1``, with
+  non-finite delta elements zeroed inside the reduction.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .fl_aggregate import fl_aggregate_cuda
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def fl_aggregate(global_p, deltas, mask):
+    """Eq. (3): ``global + (1/R) Σ_r mask_r · δ_r`` for ``deltas: [R, M]``."""
+    if not _on_card(global_p):
+        return ref.fl_aggregate_ref(global_p, deltas, mask)
+    R = deltas.shape[0]
+    if R == 0:
+        raise ValueError("fl_aggregate needs at least one delta row")
+    return fl_aggregate_cuda(global_p, deltas, mask, 1.0 / R)
+
+
+def fl_aggregate_subset(global_p, deltas, valid, num_clients):
+    """Participant-subset eq. (3): ``deltas: [P, M]`` and validity lanes,
+    averaged over the population ``num_clients`` (a number or a tensor)."""
+    if not _on_card(global_p):
+        return ref.fl_aggregate_subset_ref(global_p, deltas, valid,
+                                           num_clients)
+    k = torch.as_tensor(num_clients, dtype=torch.float32,
+                        device=valid.device)
+    return fl_aggregate_cuda(global_p, deltas, valid.to(torch.float32) / k,
+                             1.0)
+
+
+def fl_aggregate_guarded(global_p, deltas, weights):
+    """Defensively-weighted eq. (3): ``global + Σ_r w_r · sanitize(δ_r)``,
+    with non-finite delta elements zeroed inside the reduction."""
+    if not _on_card(global_p):
+        return ref.fl_aggregate_guarded_ref(global_p, deltas, weights)
+    return fl_aggregate_cuda(global_p, deltas, weights, 1.0, guard=True)

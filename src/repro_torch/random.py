@@ -1,0 +1,172 @@
+"""JAX's threefry2x32 PRNG in PyTorch, bit for bit.
+
+Every bit-exact claim of the port rests on this module: participation masks
+are ``uniform(fold_in(base_key, t), (K,))``, minibatch indices
+``uniform(fold_in(data_key, t), (K, L, B))`` and the data key
+``fold_in(PRNGKey(seed), 0x0DA7A)`` — the same draws as the JAX package.
+
+It follows JAX with ``jax_threefry_partitionable=True`` (the default since
+JAX 0.5): ``split`` is fold-like (``split(key, n)[i] == fold_in(key, i)``),
+and ``random_bits`` hashes a 64-bit iota counter held as two 32-bit words,
+returning ``bits1 ^ bits2`` for 32-bit output.
+
+A key is an int64 tensor of shape ``[2]`` holding two uint32 words (JAX's raw
+``uint32[2]`` key).  Every uint32 operation is emulated in int64 with a
+``& 0xFFFFFFFF`` mask after each add and rotate, on the key's own device, so
+no uint32 kernel support is needed.  Samplers compute on ``device`` when it
+is given, else on the key's device.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+#: bit pattern of 1.0f — uniform() ORs 23 random mantissa bits into it
+_ONE_BITS = 0x3F800000
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK
+
+
+def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
+    """The Threefry-2x32 hash (20 rounds) of the counter pair ``(x1, x2)``
+    under the key words ``(k1, k2)``; all operands hold uint32 values in
+    int64 and broadcast together."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & MASK
+    x2 = (x2 + ks[1]) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & MASK
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x1, x2
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 32-bit ints: ``[0, seed mod 2³²]``."""
+    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
+                        device=device)
+
+
+def _hash_counts(key: torch.Tensor, shape: tuple[int, ...], device=None):
+    """``threefry2x32(key, iota_2x32(shape))``: both output words, shaped."""
+    n = math.prod(shape)
+    if n >= 2 ** 32:
+        raise NotImplementedError("counters beyond 2**32 elements")
+    key = key.to(device) if device is not None else key
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(lo), lo)
+    return b1.reshape(shape), b2.reshape(shape)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: hash the counter ``(0, data mod 2³²)``."""
+    if isinstance(data, torch.Tensor):
+        d = data.to(device=key.device, dtype=torch.int64) & MASK
+    else:
+        d = torch.tensor(int(data) & MASK, dtype=torch.int64,
+                         device=key.device)
+    b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+    return torch.stack([b1, b2])
+
+
+def split(key: torch.Tensor, num=2) -> torch.Tensor:
+    """``jax.random.split``: keys of shape ``(*num, 2)``."""
+    shape = tuple(num) if isinstance(num, (tuple, list)) else (int(num),)
+    b1, b2 = _hash_counts(key, shape)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2³²)."""
+    b1, b2 = _hash_counts(key, tuple(shape), device)
+    return b1 ^ b2
+
+
+def _as_f32(bits: torch.Tensor) -> torch.Tensor:
+    """Reinterpret uint32 bit patterns below 2³¹ as float32."""
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
+            maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits under the
+    exponent of 1.0, minus 1, then scaled into ``[minval, maxval)``."""
+    bits = random_bits(key, shape, device)
+    floats = _as_f32((bits >> 9) | _ONE_BITS) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+# M. Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011):
+# the single-precision polynomials XLA evaluates for float32 erf_inv, in
+# w = -log1p(-x²) - 2.5 (w < 5) and sqrt(-log1p(-x²)) - 3 (w ≥ 5).
+_ERFINV_CENTRAL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function, the way XLA computes it (Giles'
+    polynomials, Horner's rule, ±inf at ±1).  ``torch.erfinv`` uses other
+    approximations: tens of ulps apart from XLA's near |x| → 1."""
+    w = -torch.log1p(-x * x)
+    central = w < 5.0
+    w = torch.where(central, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(central, _ERFINV_CENTRAL[0], _ERFINV_TAIL[0])
+    for c_in, c_out in zip(_ERFINV_CENTRAL[1:], _ERFINV_TAIL[1:]):
+        p = torch.where(central, c_in, c_out) + p * w
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
+    """``jax.random.normal`` in float32: ``√2 · erfinv(u)`` with ``u``
+    uniform on ``[nextafter(−1, 0), 1)``.  The uniforms are bit-exact; the
+    erfinv follows XLA's algorithm, whose transcendental steps may round an
+    ulp apart, so the normals agree to a few ulps."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, minval=lo, maxval=1.0, device=device)
+    return erfinv(u) * float(np.float32(np.sqrt(2.0)))
+
+
+def exponential(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
+    """``jax.random.exponential`` in float32: ``−log1p(−u)``."""
+    return -torch.log1p(-uniform(key, shape, device=device))
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint`` with int32 output and scalar int32 bounds.
+
+    JAX draws two 32-bit words per value (from the two halves of
+    ``split(key)``) and folds them modulo the span with uint32 wrap-around;
+    the products are split into 16-bit halves here so int64 never overflows.
+    The wrap is part of the stream: for a span of 2³¹−1 the multiplier
+    ``(2¹⁶)² mod 2³²`` is 0.
+    """
+    lo_i, hi_i = int(minval), int(maxval)
+    if not (-2**31 <= lo_i < 2**31 and -2**31 <= hi_i < 2**31):
+        raise ValueError("randint bounds must lie in the int32 range")
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    span = (hi_i - lo_i) & MASK if hi_i > lo_i else 1
+    mult = ((2 ** 16 % span) ** 2 & MASK) % span   # uint32 square wraps
+    a = higher % span
+    prod = ((((a * (mult >> 16)) & 0xFFFF) << 16) + a * (mult & 0xFFFF)) \
+        & MASK
+    offset = ((prod + lower % span) & MASK) % span
+    out = (lo_i + offset + 2 ** 31) & MASK   # int32 wrap-around
+    return (out - 2 ** 31).to(torch.int32)

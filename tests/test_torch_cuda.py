@@ -1,0 +1,125 @@
+"""The port on an NVIDIA card: K1 (fl_aggregate) against its plain version,
+and a small simulation on the card against the same run on the CPU.
+
+Every test here is marked ``cuda`` and skips where there is no card.  This
+file imports neither JAX nor the JAX package, so it also runs on a host that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import random as jr
+from repro_torch.core import CellConfig
+from repro_torch.core.channel import channel_gains, sample_positions
+from repro_torch.core.selection import RandomScheme
+from repro_torch.data import Dataset, make_mnist_like, shard_noniid
+from repro_torch.fl import SimConfig, run_simulation
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),   # tests/test_kernels.py
+       torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+MODES = ("plain", "subset", "guarded")
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def call(mode, g, d, mask, plain=False):
+    R = d.shape[0]
+    if mode == "plain":
+        return (ref.fl_aggregate_ref if plain else ops.fl_aggregate)(g, d,
+                                                                       mask)
+    if mode == "subset":
+        return (ref.fl_aggregate_subset_ref if plain
+                else ops.fl_aggregate_subset)(g, d, mask, 3 * R)
+    return (ref.fl_aggregate_guarded_ref if plain
+            else ops.fl_aggregate_guarded)(g, d, mask / R)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 10, 100])
+@pytest.mark.parametrize("M", [77, 8192, 8193, 159_012, 199_210])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_matches_plain_version(card, mode, dtype, R, M, offset):
+    """offset=1 makes every operand a misaligned view (scalar path)."""
+    gen = torch.Generator(device=card).manual_seed(R * M)
+    g = torch.randn(M + offset, generator=gen, device=card).to(dtype)[offset:]
+    d = torch.randn(R * M + offset, generator=gen, device=card).to(dtype)[
+        offset:].view(R, M)
+    mask = (torch.rand(R, generator=gen, device=card) < 0.5).float()
+    before = fl_aggregate_cuda.launches
+    got = call(mode, g, d, mask)
+    assert fl_aggregate_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (M,)
+    torch.testing.assert_close(got.float(),
+                               call(mode, g, d, mask, plain=True).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_guard_on_and_off(card, dtype):
+    g = torch.randn(8193, device=card).to(dtype)
+    d = torch.randn(4, 8193, device=card).to(dtype)
+    d[1] = torch.nan
+    d[2, 0] = torch.inf
+    w = torch.tensor([0.25, 0.0, 0.25, 0.0], device=card)
+    out = ops.fl_aggregate_guarded(g, d, w)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(
+        out.float(), ref.fl_aggregate_guarded_ref(g, d, w).float(),
+        **TOL[dtype])
+    plain = ops.fl_aggregate(g, d, torch.tensor([1.0, 0.0, 0.0, 0.0],
+                                                device=card))
+    assert torch.isnan(plain).all()     # 0 · NaN = NaN: the row poisons
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(card):
+    g = torch.zeros(16, device=card)
+    d = torch.zeros(2, 16, device=card)
+    m = torch.ones(2, device=card)
+    with pytest.raises(TypeError):
+        fl_aggregate_cuda(g.half(), d.half(), m, 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        fl_aggregate_cuda(g, torch.zeros(16, 2, device=card).T, m, 0.5)
+    with pytest.raises(ValueError, match="shape"):
+        fl_aggregate_cuda(g, d, torch.ones(3, device=card), 0.5)
+    with pytest.raises(ValueError, match="device"):
+        fl_aggregate_cuda(g, d.cpu(), m, 0.5)
+
+
+def test_simulation_on_the_card_matches_the_cpu(card):
+    K, T = 10, 4
+    cell = CellConfig(num_clients=K)
+    train, test = make_mnist_like(jr.PRNGKey(0), n_train=1000, n_test=200,
+                                  device=card)
+    clients = shard_noniid(jr.PRNGKey(1), train, K, d=5)
+    h = channel_gains(jr.PRNGKey(3), sample_positions(jr.PRNGKey(2), cell),
+                      T).T
+    params = init_mlp(jr.PRNGKey(4), device=card)
+    cfg = SimConfig(rounds=T, local_iters=2, eval_every=2, max_staleness=3)
+    policy = RandomScheme(p_bar=0.3, num_clients=K)
+    before = fl_aggregate_cuda.launches
+    got = run_simulation(params, mlp_loss, mlp_accuracy, clients, test,
+                         policy, h, cell, cfg)
+    assert fl_aggregate_cuda.launches == before + T
+    cpu = [Dataset(c.x.cpu(), c.y.cpu(), 10) for c in clients]
+    want = run_simulation([{k: v.cpu() for k, v in p.items()} for p in params],
+                          mlp_loss, mlp_accuracy, cpu,
+                          Dataset(test.x.cpu(), test.y.cpu(), 10), policy, h,
+                          cell, cfg, device="cpu")
+    np.testing.assert_array_equal(got.participation, want.participation)
+    for name in ("energy_per_client", "test_acc", "test_loss"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)

@@ -1,0 +1,168 @@
+"""The port's simulation (repro_torch.fl.run_simulation on the CPU) against
+the JAX package's (repro.fl.run_simulation, device data path), from the same
+JAX-built datasets, channel gains and initial params.
+
+Participation masks must match bit for bit (threefry draws are exact);
+energy, accuracy and loss to the golden tolerance rtol=1e-4, atol=1e-5
+(tests/golden/harness.py).
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import CellConfig as JCell
+from repro.core import ProblemSpec as JSpec
+from repro.core.channel import channel_gains as j_channel_gains
+from repro.core.channel import sample_positions as j_sample_positions
+from repro.core.selection import ProposedOnline as JProposed
+from repro.core.selection import RandomScheme as JRandom
+from repro.data import make_mnist_like as j_make_mnist_like
+from repro.data import shard_noniid as j_shard_noniid
+from repro.fl import SimConfig as JSimConfig
+from repro.fl import grant_forced_bandwidth as j_grant
+from repro.fl import run_simulation as j_run_simulation
+from repro.models.small import init_mlp as j_init_mlp
+from repro.models.small import mlp_accuracy as j_mlp_accuracy
+from repro.models.small import mlp_loss as j_mlp_loss
+from repro_torch.convert import params_from_jax, params_to_numpy
+from repro_torch.core import CellConfig, ProblemSpec
+from repro_torch.core.selection import ProposedOnline, RandomScheme
+from repro_torch.data import Dataset
+from repro_torch.fl import (SimConfig, grant_forced_bandwidth, make_runner,
+                            run_simulation)
+from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+K, T = 10, 6
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def to_torch(ds):
+    return Dataset(torch.from_numpy(np.array(ds.x)),
+                   torch.from_numpy(np.array(ds.y)), ds.num_classes)
+
+
+@pytest.fixture(scope="module")
+def world():
+    """JAX-built world, handed to both sides as numpy."""
+    tr, te = j_make_mnist_like(jax.random.PRNGKey(0), n_train=800, n_test=200)
+    clients = j_shard_noniid(jax.random.PRNGKey(1), tr, K, d=5)
+    cell = JCell(num_clients=K)
+    h = j_channel_gains(jax.random.PRNGKey(3),
+                        j_sample_positions(jax.random.PRNGKey(2), cell), T).T
+    params = j_init_mlp(jax.random.PRNGKey(4))
+    return dict(clients=clients, test=te, h=h, params=params,
+                t_clients=[to_torch(c) for c in clients], t_test=to_torch(te),
+                t_h=torch.from_numpy(np.array(h)),
+                t_params=params_from_jax(
+                    jax.tree_util.tree_map(np.asarray, params), device="cpu"))
+
+
+def policies(name):
+    if name == "proposed":
+        return (JProposed(JSpec(cell=JCell(num_clients=K), rho=0.05, lam=0.01,
+                                num_rounds=T)),
+                ProposedOnline(ProblemSpec(cell=CellConfig(num_clients=K),
+                                           rho=0.05, lam=0.01,
+                                           num_rounds=T)))
+    return JRandom(p_bar=0.1, num_clients=K), RandomScheme(p_bar=0.1,
+                                                           num_clients=K)
+
+
+CASES = {
+    "proposed-continuous": ("proposed", {}),
+    "random-participants": ("random", dict(local_mode="participants")),
+    "proposed-staleness3": ("proposed", dict(max_staleness=3)),
+    "random-participants-staleness3-aging": (
+        "random", dict(local_mode="participants", max_staleness=3,
+                       aging_boost=True)),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_simulation_matches_jax(world, case):
+    pol, extra = CASES[case]
+    jpol, tpol = policies(pol)
+    kw = dict(rounds=T, local_iters=5, batch_size=10, eval_every=2,
+              data_path="device", **extra)
+    want = j_run_simulation(world["params"], j_mlp_loss, j_mlp_accuracy,
+                            world["clients"], world["test"], jpol, world["h"],
+                            JCell(num_clients=K), JSimConfig(**kw))
+    got = run_simulation(world["t_params"], mlp_loss, mlp_accuracy,
+                         world["t_clients"], world["t_test"], tpol,
+                         world["t_h"], CellConfig(num_clients=K),
+                         SimConfig(**kw), device="cpu")
+    np.testing.assert_array_equal(got.participation, want.participation)
+    np.testing.assert_array_equal(got.eval_rounds, want.eval_rounds)
+    for name in ("energy_per_client", "energy_timeline", "test_acc",
+                 "test_loss"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+    state = got.state
+    np.testing.assert_array_equal(state.last_tx.numpy(),
+                                  np.asarray(want.state.last_tx))
+    assert int(state.round) == int(want.state.round) == T
+    for a, b in zip(jax.tree_util.tree_leaves(want.state.global_params),
+                    jax.tree_util.tree_leaves(params_to_numpy(
+                        state.layout.unflatten(state.global_params)))):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=RTOL, atol=ATOL)
+    if "staleness3" in case:
+        assert (np.diff(np.r_[-1, np.nonzero(got.participation[:, 0])[0], T])
+                <= 3).all()
+
+
+def test_runner_is_reusable_and_seeded(world):
+    jpol, tpol = policies("random")
+    cfg = SimConfig(rounds=T, local_iters=1, eval_every=3)
+    run = make_runner(mlp_loss, mlp_accuracy, world["t_clients"],
+                      world["t_test"], tpol, CellConfig(num_clients=K), cfg,
+                      device="cpu")
+    a, b = run(world["t_params"], world["t_h"]), run(world["t_params"],
+                                                     world["t_h"])
+    np.testing.assert_array_equal(a.participation, b.participation)
+    np.testing.assert_array_equal(a.test_loss, b.test_loss)
+    c = run(world["t_params"], world["t_h"], seed=1)
+    assert not np.array_equal(a.participation, c.participation)
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_grant_forced_bandwidth_matches_jax(case):
+    rng = np.random.default_rng(case)
+    w = rng.dirichlet(np.ones(K)).astype(np.float32)
+    if case == 1:           # greedy-style zero slices for unselected clients
+        w[:6] = 0.0
+        w /= w.sum()
+    forced = rng.uniform(size=K) < [0.0, 0.3, 0.6, 1.0][case]
+    got = grant_forced_bandwidth(torch.from_numpy(w), torch.from_numpy(forced),
+                                 K).numpy()
+    want = np.asarray(j_grant(jax.numpy.asarray(w), jax.numpy.asarray(forced),
+                              K))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    assert got.sum() <= 1.0 + 1e-6
+    assert (got[forced] > 0).all()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("faults", object()), ("guards", object()), ("aggregator", object()),
+    ("metrics", object()), ("participation", "sparse"),
+    ("data_path", "stream"), ("data_path", "prestack"),
+    ("data_stream", "client"), ("eval_mode", "replay"),
+    ("checkpoint_every", 5), ("participant_bucket", 8), ("stream_chunk", 4),
+    ("overflow", "error"),
+])
+def test_unported_settings_raise(world, field, value):
+    cfg = dataclasses.replace(SimConfig(rounds=2), **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        make_runner(mlp_loss, mlp_accuracy, world["t_clients"],
+                    world["t_test"], policies("random")[1],
+                    CellConfig(num_clients=K), cfg, device="cpu")
+
+
+def test_unknown_local_mode_raises(world):
+    with pytest.raises(ValueError, match="local_mode"):
+        make_runner(mlp_loss, mlp_accuracy, world["t_clients"],
+                    world["t_test"], policies("random")[1],
+                    CellConfig(num_clients=K),
+                    SimConfig(local_mode="sometimes"), device="cpu")

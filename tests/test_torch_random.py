@@ -1,0 +1,134 @@
+"""The port's threefry2x32 (repro_torch.random) against jax.random: keys,
+bits, uniforms, randint and exponentials bit for bit, normals to a few ulps.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import random as jr
+
+SEEDS = [0, 1, 42, 12345, 2**32 - 1]
+# incl. the masks' (K,) and the minibatch indices' (K, L, B)
+SHAPES = [(), (10,), (10, 5, 10), (7, 3)]
+
+
+def _jax(a):
+    return np.asarray(a).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", SEEDS + [2**32 + 5, -5])
+def test_prng_key(seed):
+    np.testing.assert_array_equal(jr.PRNGKey(seed).numpy(),
+                                  _jax(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("data", [0, 1, 7, 0x0DA7A, 2**31, 2**32 - 1])
+def test_fold_in(seed, data):
+    want = jax.random.fold_in(jax.random.PRNGKey(seed), data)
+    np.testing.assert_array_equal(jr.fold_in(jr.PRNGKey(seed), data).numpy(),
+                                  _jax(want))
+    got_t = jr.fold_in(jr.PRNGKey(seed), torch.tensor(data, dtype=torch.int64))
+    np.testing.assert_array_equal(got_t.numpy(), _jax(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [2, 5, (3, 4)])
+def test_split(seed, num):
+    np.testing.assert_array_equal(
+        jr.split(jr.PRNGKey(seed), num).numpy(),
+        _jax(jax.random.split(jax.random.PRNGKey(seed), num)))
+
+
+def test_split_is_fold_like():
+    key = jr.PRNGKey(3)
+    keys = jr.split(key, 4)
+    for i in range(4):
+        np.testing.assert_array_equal(keys[i].numpy(),
+                                      jr.fold_in(key, i).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_random_bits(seed, shape):
+    want = jax.random.bits(jax.random.PRNGKey(seed), shape, jnp.uint32)
+    np.testing.assert_array_equal(
+        jr.random_bits(jr.PRNGKey(seed), shape).numpy(), _jax(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_uniform_bit_exact(seed, shape):
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape))
+    got = jr.uniform(jr.PRNGKey(seed), shape).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_uniform_participation_and_minibatch_streams():
+    """The engine's two draws: masks from fold_in(base_key, t) over (K,),
+    minibatch indices from fold_in(fold_in(key, 0x0DA7A), t) over (K, L, B)."""
+    base, data = jax.random.PRNGKey(7), jax.random.fold_in(
+        jax.random.PRNGKey(7), 0x0DA7A)
+    tbase, tdata = jr.PRNGKey(7), jr.fold_in(jr.PRNGKey(7), 0x0DA7A)
+    for t in range(5):
+        for jk, tk, shape in ((base, tbase, (10,)),
+                              (data, tdata, (10, 5, 10))):
+            want = np.asarray(jax.random.uniform(jax.random.fold_in(jk, t),
+                                                 shape))
+            got = jr.uniform(jr.fold_in(tk, t), shape).numpy()
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))
+
+
+@pytest.mark.parametrize("lo,hi", [(-1.0, 1.0), (2.0, 5.0)])
+def test_uniform_range_bit_exact(lo, hi):
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(4), (100,),
+                                         minval=lo, maxval=hi))
+    got = jr.uniform(jr.PRNGKey(4), (100,), minval=lo, maxval=hi).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", [(0, 10), (0, 2**31 - 1), (-5, 3), (3, 3),
+                                   (-2**31, 2**31 - 1)])
+def test_randint_bit_exact(seed, lo, hi):
+    for shape in [(), (50,)]:
+        want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), shape,
+                                             lo, hi))
+        got = jr.randint(jr.PRNGKey(seed), shape, lo, hi).numpy()
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_exponential_matches(seed):
+    want = np.asarray(jax.random.exponential(jax.random.PRNGKey(seed), (500,)))
+    got = jr.exponential(jr.PRNGKey(seed), (500,)).numpy()
+    np.testing.assert_allclose(got, want, rtol=4 * 2.0**-23, atol=0)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_within_few_ulps(seed):
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (4000,)))
+    got = jr.normal(jr.PRNGKey(seed), (4000,)).numpy()
+    assert got.dtype == np.float32
+    ulps = np.abs(got - want) / np.spacing(np.abs(want))
+    assert ulps.max() <= 4, ulps.max()
+    assert np.mean(got == want) > 0.9
+
+
+def test_erfinv_edges():
+    x = torch.tensor([-1.0, 1.0, 0.0, 0.5, -0.999999], dtype=torch.float32)
+    got = jr.erfinv(x).numpy()
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x.numpy())))
+    assert np.isneginf(got[0]) and np.isposinf(got[1]) and got[2] == 0.0
+    np.testing.assert_allclose(got[2:], want[2:], rtol=4 * 2.0**-23)
+
+
+def test_sampling_follows_the_key_or_the_device_argument():
+    key = jr.PRNGKey(0)
+    assert jr.uniform(key, (3,)).device == key.device
+    assert jr.uniform(key, (3,), device="cpu").device.type == "cpu"
