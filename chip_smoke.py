@@ -20,17 +20,40 @@ Phases, each reporting on its own lines:
    ProposedOnline, RandomScheme(p̄ = 0.1) and ProposedOnline with Δ = 3; each
    run must launch K1 exactly once per round; then the same runs on the CPU
    from the same data and initial params: masks equal bit for bit, energy,
-   accuracy and loss within rtol 1e-4, atol 1e-5.
+   accuracy and loss within rtol 1e-4, atol 1e-5;
+4. attention kernel — K2 (``flash_attention``) against its plain version on
+   the card: the sweeps of tests/test_kernels.py (MHA, GQA 2:1 and 4:1,
+   MQA, hd 64 and 128), windows 32 and 128, ``causal=False``, ragged S (1,
+   77, 1000), float32 and bfloat16, the first token attending only to
+   itself, and the slice's own shape (B 4, S 1024, H 32, KV 8, hd 64,
+   bf16); then CUDA-event timings (L2 flushed) of the kernel, the plain
+   version and ``scaled_dot_product_attention`` at B 4 × S 1024, B 1 × S
+   4096 and B 1 × S 32,768, beside the bound;
+5. LLM slice — (a) ``llama3.2-1b`` at full width and depth in bfloat16
+   through ``repro_torch.launch.generate.main`` (batch 4, prompt 1024, 32
+   new tokens): K2 must launch once per layer of the prefill (16); init,
+   prefill and per-token decode times and peak memory; (b) on the card, at
+   full width and depth, prefill(t[:1024]) then 31 decode steps must
+   reproduce forward(t) at S = 1056: in float32 to tests/test_models.py's
+   tolerances, in bfloat16 to 0.1 (bf16 rounding: the run also measures
+   the gap with decode rounded as forward rounds, with K2's plain version
+   in forward, and between two correct forwards); then a torch.profiler
+   window over a prefill and over 8 decode steps;
+   (c) full width at depth 2 in float32: greedy tokens on the card equal
+   the CPU's from the same weights, logits within rtol 1e-4, atol 1e-4.
 
 Float32 products run in full float32 on the card: TF32 is switched off for
 both cuBLAS matmuls and cuDNN, so card-against-CPU differences are summation
 order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+``{"ok": true, "device": {...}}``; the line before it lists the kernels
+(K1 and K2), each with its launches on its main path (phase 3 for K1, the
+generate run of phase 5a for K2) and its times at the main path's shape.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -64,6 +87,7 @@ def card_bandwidth(name: str) -> tuple[float, str]:
 
 
 FP32_PEAK = 67e12   # H100 SXM float32 outside the tensor cores, flop/s
+BF16_PEAK = 989e12  # H100 SXM bf16 tensor cores, dense, flop/s
 
 
 # ---------------------------------------------------------------------------
@@ -84,14 +108,21 @@ def environment(torch):
     log(f"[env] torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    from repro_torch.kernels.fl_aggregate import library
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import fl_aggregate, flash_attention
     t0 = time.perf_counter()
-    built = library()
-    log(f"[env] fl_aggregate built in {built.seconds:.2f} s (nvcc), ready "
-        f"after {time.perf_counter() - t0:.2f} s: {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[ptxas] {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
+        futures = {m.__name__.rsplit(".", 1)[1]: pool.submit(m.library)
+                   for m in (fl_aggregate, flash_attention)}
+        built = {name: f.result() for name, f in futures.items()}
+    for name, lib in built.items():
+        log(f"[env] {name} built in {lib.seconds:.2f} s (nvcc): "
+            f"{lib.path.name}")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[ptxas] {line.strip()}")
+    log(f"[env] kernels ready after {time.perf_counter() - t0:.2f} s")
     return smi
 
 
@@ -337,6 +368,425 @@ def slice_runs(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4
+# ---------------------------------------------------------------------------
+
+# the slice's attention shape: llama3.2-1b's heads at batch 4, prompt 1024
+MAIN_ATTN = (4, 1024, 32, 8, 64)
+
+
+def attn_inputs(torch, B, S, H, KV, hd, dtype, gen):
+    return [torch.randn(B, S, n, hd, generator=gen, device="cuda").to(dtype)
+            for n in (H, KV, KV)]
+
+
+def check_flash(torch):
+    """K2 against its plain version over every case; returns the max
+    |kernel - plain| at the slice's shape."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = []
+    for dname in dtypes:
+        for shape in ((1, 128, 2, 2, 64), (2, 256, 4, 2, 64),
+                      (1, 256, 8, 2, 128), (1, 512, 4, 1, 64)):
+            cases.append((dname, shape, True, None))
+        for window in (32, 128):
+            cases.append((dname, (1, 256, 2, 2, 64), True, window))
+            cases.append((dname, (2, 300, 8, 2, 128), False, window))
+        for S in (1, 77, 1000):
+            cases.append((dname, (2, S, 8, 2, 64), True, None))
+            cases.append((dname, (1, S, 4, 4, 128), False, None))
+    cases.append(("bfloat16", MAIN_ATTN, True, None))
+    worst, main_err = {}, 0.0
+    for dname, shape, causal, window in cases:
+        q, k, v = attn_inputs(torch, *shape, dtypes[dname], gen)
+        before = flash_attention_cuda.launches
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if flash_attention_cuda.launches != before + 1:
+            raise AssertionError("K2 did not launch")
+        if out.dtype != q.dtype or out.shape != q.shape:
+            raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
+        torch.testing.assert_close(out.float(), want.float(), **TOL[dname],
+                                   msg=lambda m: f"{shape} causal={causal} "
+                                   f"window={window} {dname}: {m}")
+        err = float((out.float() - want.float()).abs().max())
+        worst[dname] = max(worst.get(dname, 0.0), err)
+        if shape == MAIN_ATTN:
+            main_err = err
+    for dname, err in worst.items():
+        log(f"[attn] {dname:8s} max |kernel - plain| = {err:.3e} (tolerance "
+            f"atol {TOL[dname]['atol']}, rtol {TOL[dname]['rtol']})")
+    q, k, v = attn_inputs(torch, 1, 128, 2, 2, 64, torch.float32, gen)
+    torch.testing.assert_close(ops.flash_attention(q, k, v)[0, 0], v[0, 0],
+                               atol=1e-5, rtol=0)
+    log(f"[attn] {len(cases)} shape/mask/dtype cases within tolerance "
+        f"(sweeps of tests/test_kernels.py, windows 32/128, causal=False, "
+        f"S in 1/77/1000, B4 S1024 H32 KV8 hd64 bf16: max err "
+        f"{main_err:.3e}); the first token attends only to itself")
+    return main_err
+
+
+def attn_bound(B, S, H, KV, hd, elem, peak, bandwidth):
+    """(bound ms, 'bytes' | 'operations', flop, bytes) of causal attention:
+    4·B·H·hd·S(S+1)/2 flop; q, k, v read and o written once."""
+    flop = 4 * B * H * hd * S * (S + 1) / 2
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elem
+    t_ops, t_bytes = flop / peak * 1e3, nbytes / bandwidth * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flop, nbytes)
+
+
+def time_flash(torch, bandwidth):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")   # 256 MB > L2
+    rows = {}
+    for shape, iters in ((MAIN_ATTN, 100), ((1, 4096, 32, 8, 64), 30),
+                         ((1, 32768, 32, 8, 64), 5)):
+        B, S, H, KV, hd = shape
+        q, k, v = attn_inputs(torch, *shape, torch.bfloat16, gen)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        t_kernel = time_ms(torch, lambda: ops.flash_attention(q, k, v),
+                           flush, iters=iters, warmup=2)
+        plain_note = ""
+        try:
+            t_lib = time_ms(torch, library, flush, iters=iters, warmup=2)
+        except torch.cuda.OutOfMemoryError:   # a backend without GQA
+            t_lib = None
+            plain_note += " (sdpa ran out of memory)"
+        if S <= 4096:
+            t_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
+                              flush, iters=iters, warmup=2)
+        else:
+            t_plain = None
+            plain_note = (f" (plain version not run: its [B,KV,G,S,S] fp32 "
+                          f"scores would take {B * H * S * S * 4 / 1e9:.0f} "
+                          f"GB)")
+        bound, by, flop, nbytes = attn_bound(B, S, H, KV, hd, 2, BF16_PEAK,
+                                             bandwidth)
+        rows[shape] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                           bound_ms=bound, bound_by=by)
+        plain_txt = "n/a" if t_plain is None else f"{t_plain:.4f} ms"
+        log(f"[attn-time] B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal: "
+            f"kernel {t_kernel:.4f} ms, plain {plain_txt}, sdpa "
+            f"{'n/a' if t_lib is None else f'{t_lib:.4f} ms'}, bound {bound:.4f} ms ({by}: "
+            f"{flop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), kernel at "
+            f"{flop / t_kernel / 1e9:.1f} TFLOP/s = "
+            f"{100 * bound / t_kernel:.1f}% of the bound{plain_note}")
+        del q, k, v, qt, kt, vt
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+GEN_ARGS = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "1024",
+            "--new-tokens", "32"]
+PREFILL_TOL, DECODE_TOL = 2e-2, 5e-2        # tests/test_models.py
+BF16_TOL = 0.1
+DEPTH2_TOL = 1e-4
+
+
+def generate_full_width(torch):
+    """(a): the main path, through the entry point a user calls."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import generate
+    from repro_torch.obs.telemetry import get_telemetry
+
+    cfg = get("llama3.2-1b")
+    get_telemetry().reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fl_aggregate_cuda.launches = 0
+    flash_attention_cuda.launches = 0
+    out = generate.main(GEN_ARGS)
+    launches = flash_attention_cuda.launches
+    k1 = fl_aggregate_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != cfg.n_layers:
+        raise AssertionError(f"K2 launched {launches} times in a prefill of "
+                             f"{cfg.n_layers} layers")
+    tokens = out["tokens"]
+    if tokens.shape != (4, 32) or not bool(((tokens >= 0)
+                                            & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"malformed tokens {tuple(tokens.shape)}")
+    init = get_telemetry().span_stats("serve.init")["total_s"]
+    log(f"[llm] {cfg.name} full width and depth ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab "
+        f"{cfg.vocab}), bf16, batch 4, prompt 1024, 32 new tokens: init "
+        f"{init:.2f} s, prefill {out['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{out['decode_s_per_token'] * 1e3:.2f} ms/token, peak memory "
+        f"{peak:.2f} GB; K2 launches={launches} (= n_layers), K1 "
+        f"launches={k1}")
+    return launches
+
+
+def decode_rounded(p, cfg, x, cache):
+    """``attention.attn_decode`` with one change: the attention output is
+    rounded to ``x.dtype`` before ``wo``, as forward rounds it.  A side
+    computation of phase 5b, to show what the bf16 tolerance absorbs; the
+    port's decode is not changed."""
+    import torch
+
+    from repro_torch.models import attention as A
+    B, C = x.shape[0], cache.k.shape[1]
+    positions = torch.full((B, 1), cache.pos, dtype=torch.int64,
+                           device=x.device)
+    q, k, v = A._qkv(p, cfg, x, positions)
+    slot = cache.pos % C
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    scores = A._gqa_scores(q, cache.k, cfg)
+    valid = torch.arange(C, device=x.device) <= min(cache.pos, C - 1)
+    out = A._attend(scores, cache.v, valid)
+    y = (out.reshape(B, 1, -1).to(x.dtype) @ p.wo).to(x.dtype)
+    return y, A.KVCache(k=cache.k, v=cache.v, pos=cache.pos + 1)
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """Set ``module.name`` to ``value`` for the block, then restore it."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def decode_against_forward(T, model, toks, P, N, full, tols):
+    """prefill(t[:P]) then N - 1 decode steps, each step's logits held
+    against forward's at its position: (worst share of the tolerance for
+    the prefill step and for the decode steps, max |diff|, worst relative
+    L2, argmax agreements)."""
+    lg, caches = T.prefill(model, tokens=toks[:, :P], capacity=P + N)
+    steps = [lg[:, 0]]
+    for i in range(P, P + N - 1):
+        lg, caches = T.decode_step(model, toks[:, i:i + 1], caches)
+        steps.append(lg[:, 0])
+    worst, err, rel, agree = [0.0, 0.0], 0.0, 0.0, 0
+    for j, got in enumerate(steps):
+        want = full[:, P - 1 + j]
+        tol = tols[j > 0]
+        ratio = float(((got - want).abs() / (tol + tol * want.abs())).max())
+        worst[j > 0] = max(worst[j > 0], ratio)
+        err = max(err, float((got - want).abs().max()))
+        rel = max(rel, float((got - want).norm() / want.norm()))
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+    return worst, err, rel, agree
+
+
+def prefill_decode_parity(torch, dtype: str):
+    """(b): prefill(t[:P]) + decode steps reproduce forward(t) on the card
+    (decode through the plain cache attention, forward at S = 1056 through
+    K2's ragged last tile), at full width and depth.  In float32 the
+    tolerances are tests/test_models.py's.  In bfloat16 they are 0.1, the
+    size of bf16 rounding at the logits of this network at full width and
+    depth: two correct bf16 forwards, through K2 and through its plain
+    version, lie about 0.09 apart on an H100.  The bf16 run measures that
+    distance beside the decode gap, and the gap again with the two known
+    differences of rounding taken away (decode rounding the attention
+    output to bf16 before ``wo`` as forward does; forward through the
+    plain version, whose P·V is float32 as decode's is)."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get("llama3.2-1b"), dtype=dtype)
+    tols = (PREFILL_TOL, DECODE_TOL) if dtype == "float32" else (BF16_TOL,
+                                                                  BF16_TOL)
+    model = T.init_params(jr.PRNGKey(1), cfg)
+    B, P, N = 4, 1024, 32
+    toks = jr.randint(jr.PRNGKey(2), (B, P + N), 0, cfg.vocab, device="cuda")
+    with torch.inference_mode():
+        T.prefill(model, tokens=toks[:, :P], capacity=P + N)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.prefill(model, tokens=toks[:, :P], capacity=P + N)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        full, _ = T.forward(model, tokens=toks)
+        worst, err, rel, agree = decode_against_forward(T, model, toks, P, N,
+                                                        full, tols)
+        scale = float(full[:, P - 1:].abs().mean())
+        log(f"[llm] {dtype}: on the card, prefill(t[:{P}]) + {N - 1} decode "
+            f"steps against forward(t) at S={P + N}: prefill logits within "
+            f"{tols[0]} (worst {worst[0]:.3f} of it), decode within "
+            f"{tols[1]} (worst {worst[1]:.3f}); max |diff| {err:.3e}, worst "
+            f"relative L2 {rel:.3e}, mean |logit| {scale:.3f}; argmax equal "
+            f"at {agree} of {B * N}; warm prefill {warm * 1e3:.1f} ms")
+        if max(worst) > 1.0:
+            raise AssertionError(f"{dtype}: prefill/decode logits differ "
+                                 f"from forward beyond the tolerance "
+                                 f"({max(worst):.3f} of it)")
+        if dtype == "float32":
+            return
+        # Where the bf16 gap comes from (measured, not gated): decode again
+        # with the attention output rounded to bf16 before wo, as forward
+        # rounds it, against forward through K2 and then through K2's
+        # plain version (float32 P·V, as decode computes it); and the two
+        # forwards against each other.
+        with swapped(A, "attn_decode", decode_rounded):
+            rounded = decode_against_forward(T, model, toks, P, N, full,
+                                             tols)
+            with swapped(ops, "flash_attention", ref.flash_attention_ref):
+                plain_full, _ = T.forward(model, tokens=toks)
+                alike = decode_against_forward(T, model, toks, P, N,
+                                               plain_full, tols)
+        diff = full[:, P - 1:] - plain_full[:, P - 1:]
+        floor_err = float(diff.abs().max())
+        floor_rel = float(diff.norm() / plain_full[:, P - 1:].norm())
+        del plain_full, diff
+        for what, (_, err, rel, agree) in (
+                ("decode rounded as forward, against forward through K2",
+                 rounded),
+                ("decode rounded as forward, against forward through K2's "
+                 "plain version", alike)):
+            log(f"[llm] bfloat16, {what}: max |diff| {err:.3e} "
+                f"({err / DECODE_TOL:.3f} of tests/test_models.py's "
+                f"{DECODE_TOL}), worst relative L2 {rel:.3e}; argmax equal "
+                f"at {agree} of {B * N}")
+        log(f"[llm] bfloat16, forward through K2 against forward through "
+            f"its plain version (two correct forwards; K2 rounds P to bf16 "
+            f"for P·V): max |diff| {floor_err:.3e}, relative L2 "
+            f"{floor_rel:.3e}")
+        del full
+        trace_llm(torch, T, model, toks, P, 9)
+
+
+def trace_llm(torch, T, model, toks, P, N):
+    """A torch.profiler window over one prefill and then over N - 1 decode
+    steps: wall time (host clock to synchronize, with the profiler on),
+    device busy time (the summed time of the device's own events: one
+    stream, so they do not overlap) and the kernels that take most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        """Device time of a kernel, memcpy or memset event; 0 for the host
+        operations that launched them (counting both would count twice)."""
+        if e.device_type == DeviceType.CPU:
+            return 0
+        return getattr(e, "self_device_time_total", 0) or 0
+
+    def window(name, fn):
+        """Trace ``fn``.  Only the profiler's own start and stop may fail
+        quietly; a fault of the model itself ends the run."""
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        try:
+            prof.start()
+        except RuntimeError as err:
+            log(f"[trace] {name}: not measured (profiler start: {err})")
+            prof = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if prof is None:
+            return
+        try:
+            prof.stop()
+        except RuntimeError as err:
+            log(f"[trace] {name}: not measured (profiler stop: {err})")
+            return
+        events = [e for e in prof.key_averages() if device_us(e) > 0]
+        busy = sum(device_us(e) for e in events) / 1e3
+        if busy == 0:
+            log(f"[trace] {name}: wall {wall:.2f} ms; device time not "
+                f"measured (the profiler saw no device activity)")
+            return
+        top = sorted(events, key=device_us, reverse=True)[:6]
+        parts = ", ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms "
+                          f"x{e.count}" for e in top)
+        log(f"[trace] {name}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy / wall:.1f} %, idle {100 - 100 * busy / wall:.1f}"
+            f" %); top kernels: {parts}")
+
+    state = {}
+
+    def run_prefill():
+        state["lg"], state["caches"] = T.prefill(
+            model, tokens=toks[:, :P], capacity=P + N)
+
+    def run_decode():
+        lg, caches = state["lg"], state["caches"]
+        for i in range(P, P + N - 1):
+            lg, caches = T.decode_step(model, toks[:, i:i + 1], caches)
+
+    with torch.inference_mode():
+        window("prefill B4 x 1024", run_prefill)
+        window(f"decode {N - 1} steps", run_decode)
+
+
+def greedy(torch, T, model, prompts, new_tokens):
+    with torch.inference_mode():
+        lg, caches = T.prefill(model, tokens=prompts,
+                               capacity=prompts.shape[1] + new_tokens)
+        logits, toks = [lg], [lg.argmax(-1)]
+        for _ in range(new_tokens - 1):
+            lg, caches = T.decode_step(model, toks[-1], caches)
+            logits.append(lg)
+            toks.append(lg.argmax(-1))
+    return torch.cat(toks, 1).cpu(), torch.cat(logits, 1).cpu()
+
+
+def depth2_card_vs_cpu(torch):
+    """(c): full width at depth 2 in float32, TF32 off, on the card and on
+    the CPU from the same weights.  Tolerance rtol = atol = 1e-4: float32 on
+    both sides, the sums taken in other orders (cuBLAS against the CPU's
+    BLAS, K2's streaming softmax against the plain one), each ~1e-6
+    relative, grown through two layers and the 2048-wide unembedding."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get("llama3.2-1b"), n_layers=2,
+                              dtype="float32")
+    model = T.init_params(jr.PRNGKey(5), cfg)
+    prompts = jr.randint(jr.PRNGKey(6), (4, 128), 0, cfg.vocab,
+                         device="cuda")
+    before = flash_attention_cuda.launches
+    tok_card, lg_card = greedy(torch, T, model, prompts, 8)
+    if flash_attention_cuda.launches != before + cfg.n_layers:
+        raise AssertionError("depth-2 prefill did not run K2 per layer")
+    cpu = T.Transformer(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    del model
+    t0 = time.perf_counter()
+    tok_cpu, lg_cpu = greedy(torch, T, cpu, prompts.cpu(), 8)
+    wall = time.perf_counter() - t0
+    if not torch.equal(tok_card, tok_cpu):
+        raise AssertionError(f"greedy tokens differ:\n{tok_card}\n"
+                             f"{tok_cpu}")
+    torch.testing.assert_close(lg_card, lg_cpu, rtol=DEPTH2_TOL,
+                               atol=DEPTH2_TOL)
+    err = float((lg_card - lg_cpu).abs().max())
+    log(f"[llm] depth 2, full width, float32 (TF32 off), batch 4, prompt "
+        f"128, 8 new tokens: greedy tokens on the card equal the CPU's; "
+        f"logits max |card - cpu| = {err:.3e} (tolerance rtol = atol = "
+        f"{DEPTH2_TOL}); cpu {wall:.2f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -356,7 +806,12 @@ def main() -> int:
     max_err = check_kernel(torch)
     timing = time_kernel(torch, bandwidth)
     launches = slice_runs(torch)
-    main_row = timing[(K, MAIN_M)]
+    attn_err = check_flash(torch)
+    attn_timing = time_flash(torch, bandwidth)
+    attn_launches = generate_full_width(torch)
+    prefill_decode_parity(torch, "float32")
+    depth2_card_vs_cpu(torch)
+    prefill_decode_parity(torch, "bfloat16")
     kernels = {"kernels": [{
         "name": "fl_aggregate",
         "route": "cuda",
@@ -364,10 +819,19 @@ def main() -> int:
         "replaces": "src/repro/kernels/fl_aggregate.py:43",
         "launches": launches,
         "max_abs_err": max_err,
-        **main_row,
+        **timing[(K, MAIN_M)],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "launches": attn_launches,
+        "max_abs_err": attn_err,
+        **attn_timing[MAIN_ATTN],
     }]}
-    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; timings at "
-        f"R={K}, M={MAIN_M} fp32 on {smi}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; K1 timings "
+        f"at R={K}, M={MAIN_M} fp32, K2 at B4 S1024 H32 KV8 hd64 bf16, on "
+        f"{smi}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,13 @@ example ``jax.tree_util.tree_map(np.asarray, params)``) and returns the
 port's params; ``params_to_numpy`` goes back.  Both keep JAX's layout
 (``{"w": [n_in, n_out], "b": [n_out]}`` per layer), so the two packages can
 train from the same weights.
+
+``transformer_from_jax`` does the same for the decoder stack: it takes JAX's
+``init_params`` tree (``embed``, ``blocks``, ``final_norm``, ``unembed``)
+as numpy arrays, unstacks the leading ``[n_repeats]`` axis of ``blocks``
+into the port's ``layers``, and casts each leaf to the model's dtype;
+``transformer_to_numpy`` stacks it back (as float32 arrays, since numpy has
+no bfloat16).
 """
 from __future__ import annotations
 
@@ -27,3 +34,71 @@ def params_to_numpy(params):
     """The port's params → a list of ``{name: np.ndarray}`` layers."""
     return [{name: t.detach().cpu().numpy() for name, t in layer.items()}
             for layer in params]
+
+
+@torch.no_grad()
+def load_jax_tree(module: torch.nn.Module, tree: dict) -> None:
+    """Copy a nested ``{name: array}`` tree into the parameters (or
+    submodules) of ``module`` of the same names, casting each array to its
+    parameter's dtype.  Every parameter must be given, with its shape."""
+    given = set()
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            load_jax_tree(getattr(module, name), value)
+            given.add(name)
+            continue
+        param = getattr(module, name)
+        a = np.array(value, dtype=np.float32)     # a writable copy
+        if tuple(a.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{tuple(param.shape)}")
+        param.copy_(torch.from_numpy(a))
+        given.add(name)
+    missing = {n.split(".")[0] for n, _ in module.named_parameters()} - given
+    if missing:
+        raise ValueError(f"no value for {sorted(missing)}")
+
+
+def transformer_from_jax(tree: dict, cfg, device=None):
+    """JAX's transformer param tree (numpy leaves) → a
+    ``models.transformer.Transformer`` on ``device`` (``None``: the card)."""
+    from .models.transformer import Transformer
+    model = Transformer(cfg, resolve_device(device))
+    plan = cfg.layer_plan()
+    flat = {k: v for k, v in tree.items() if k != "blocks"}
+    load_jax_tree(model, {**flat, "layers": {
+        str(r * len(plan) + i): _take(tree["blocks"][i], r)
+        for r in range(cfg.n_repeats) for i in range(len(plan))}})
+    return model
+
+
+def _take(tree, r: int):
+    return {k: _take(v, r) if isinstance(v, dict) else np.asarray(v)[r]
+            for k, v in tree.items()}
+
+
+def transformer_to_numpy(model) -> dict:
+    """The inverse of :func:`transformer_from_jax`: JAX's tree layout with
+    ``blocks`` stacked on ``[n_repeats]``, as float32 numpy arrays."""
+    cfg = model.cfg
+    plan = cfg.layer_plan()
+
+    def tree(module):
+        out = {n: p.detach().float().cpu().numpy()
+               for n, p in module.named_parameters(recurse=False)}
+        out.update({n: tree(m) for n, m in module.named_children()})
+        return out
+
+    layers = [tree(block) for block in model.layers]
+    blocks = [_stack([layers[r * len(plan) + i]
+                      for r in range(cfg.n_repeats)])
+              for i in range(len(plan))]
+    out = {n: p.detach().float().cpu().numpy()
+           for n, p in model.named_parameters(recurse=False)}
+    out["blocks"] = blocks
+    return out
+
+
+def _stack(trees):
+    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else np.stack([t[k] for t in trees]) for k in trees[0]}

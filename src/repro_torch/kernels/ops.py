@@ -2,7 +2,8 @@
 kernel, a CPU tensor to its plain version in :mod:`.ref`.  Nothing else —
 no fallback from one to the other.
 
-The three modes of ``repro.kernels.ops`` all launch the one K1 kernel
+:func:`flash_attention` launches K2 (:mod:`.flash_attention`).  The three
+modes of ``repro.kernels.ops`` for eq. (3) all launch the one K1 kernel
 (:func:`.fl_aggregate.fl_aggregate_cuda`) with folded scalars:
 
 * :func:`fl_aggregate` — dense rows = K, a {0, 1} mask, ``inv_k = 1/R``;
@@ -17,6 +18,7 @@ import torch
 
 from . import ref
 from .fl_aggregate import fl_aggregate_cuda
+from .flash_attention import flash_attention_cuda
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -55,3 +57,11 @@ def fl_aggregate_guarded(global_p, deltas, weights):
     if not _on_card(global_p):
         return ref.fl_aggregate_guarded_ref(global_p, deltas, weights)
     return fl_aggregate_cuda(global_p, deltas, weights, 1.0, guard=True)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
+    """Causal (optionally sliding-window) GQA attention: ``q [B,S,H,hd]``,
+    ``k``/``v [B,S,KV,hd]`` → ``[B,S,H,hd]`` in ``q.dtype``."""
+    if not _on_card(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -39,3 +39,31 @@ def fl_aggregate_guarded_ref(global_p: torch.Tensor, deltas: torch.Tensor,
     d = torch.where(torch.isfinite(d), d, 0.0)
     agg = torch.sum(d * weights.float()[:, None], dim=0)
     return (global_p.float() + agg).to(global_p.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: int | None = None) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention, float32 softmax.
+
+    q: [B, S, H, hd]; k, v: [B, S, KV, hd]; H % KV == 0; query head h reads
+    KV head ``h // (H / KV)``.  A key is kept where ``kpos <= qpos`` (causal)
+    and ``kpos > qpos - window`` (window).  Returns ``q.dtype``.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd).float()
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+    scores = scores / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= j > i - window
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)

@@ -56,14 +56,19 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def _hash_range(key: torch.Tensor, start: int, stop: int):
+    """Both threefry output words for the flat counters ``[start, stop)``
+    of an iota (the low word; the high word is 0 below 2³²)."""
+    if stop > 2 ** 32:
+        raise NotImplementedError("counters beyond 2**32 elements")
+    lo = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    return threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(lo), lo)
+
+
 def _hash_counts(key: torch.Tensor, shape: tuple[int, ...], device=None):
     """``threefry2x32(key, iota_2x32(shape))``: both output words, shaped."""
-    n = math.prod(shape)
-    if n >= 2 ** 32:
-        raise NotImplementedError("counters beyond 2**32 elements")
     key = key.to(device) if device is not None else key
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
-    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(lo), lo)
+    b1, b2 = _hash_range(key, 0, math.prod(shape))
     return b1.reshape(shape), b2.reshape(shape)
 
 
@@ -96,15 +101,19 @@ def _as_f32(bits: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32)
 
 
-def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0, device=None) -> torch.Tensor:
-    """``jax.random.uniform`` in float32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, then scaled into ``[minval, maxval)``."""
-    bits = random_bits(key, shape, device)
+def _bits_to_uniform(bits: torch.Tensor, minval: float,
+                     maxval: float) -> torch.Tensor:
     floats = _as_f32((bits >> 9) | _ONE_BITS) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
+            maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits under the
+    exponent of 1.0, minus 1, then scaled into ``[minval, maxval)``."""
+    return _bits_to_uniform(random_bits(key, shape, device), minval, maxval)
 
 
 # M. Giles, "Approximating the erfinv function" (GPU Computing Gems, 2011):
@@ -131,14 +140,31 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
 
 
+#: counters hashed at a time by :func:`normal`: its int64 temporaries stay
+#: near 128 MB each however large the draw (a 128,256 × 2048 embedding
+#: would otherwise need ~2 GB per temporary)
+NORMAL_CHUNK = 1 << 24
+
+
 def normal(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``√2 · erfinv(u)`` with ``u``
     uniform on ``[nextafter(−1, 0), 1)``.  The uniforms are bit-exact; the
     erfinv follows XLA's algorithm, whose transcendental steps may round an
-    ulp apart, so the normals agree to a few ulps."""
+    ulp apart, so the normals agree to a few ulps.  Element ``i`` depends
+    only on counter ``i``, so the draw is made ``NORMAL_CHUNK`` counters at
+    a time into one float32 output."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, minval=lo, maxval=1.0, device=device)
-    return erfinv(u) * float(np.float32(np.sqrt(2.0)))
+    sqrt2 = float(np.float32(np.sqrt(2.0)))
+    key = key.to(device) if device is not None else key
+    shape = tuple(shape)
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.float32, device=key.device)
+    for start in range(0, n, NORMAL_CHUNK):
+        stop = min(n, start + NORMAL_CHUNK)
+        b1, b2 = _hash_range(key, start, stop)
+        u = _bits_to_uniform(b1 ^ b2, lo, 1.0)
+        out[start:stop] = erfinv(u) * sqrt2
+    return out.reshape(shape)
 
 
 def exponential(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:

@@ -30,6 +30,8 @@ def test_no_jax_or_repro_imports(path):
 
 def test_the_check_sees_the_whole_port():
     names = {p.name for p in FILES}
-    assert {"random.py", "engine.py", "ops.py", "chip_smoke.py"} <= names
+    assert {"random.py", "engine.py", "ops.py", "chip_smoke.py",
+            "flash_attention.py", "attention.py", "transformer.py",
+            "generate.py", "telemetry.py", "llama3_2_1b.py"} <= names
     assert forbidden("jax.numpy") and forbidden("repro.fl")
     assert not forbidden("repro_torch.fl")
