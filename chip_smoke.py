@@ -6,8 +6,9 @@
 Phases, each reporting on its own lines:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, the precision settings, and the K1 kernel's ``nvcc`` build
-   (from ``src/repro_torch/kernels/csrc``, into ``kernels/_build``);
+   CUDA versions, the precision settings, and the ``nvcc`` builds of K1, K2
+   and K3, one after the other (from ``src/repro_torch/kernels/csrc``, into
+   ``kernels/_build``), with ptxas's registers and spills;
 2. kernel — K1 (``fl_aggregate``) in all three modes, float32 and bfloat16,
    R ∈ {1, 10, 100} rows, M ∈ {77, 8193, 159012, 199210}, plus misaligned
    views, against its plain PyTorch version on the card; NaN/Inf with the
@@ -40,7 +41,28 @@ Phases, each reporting on its own lines:
    in forward, and between two correct forwards); then a torch.profiler
    window over a prefill and over 8 decode steps;
    (c) full width at depth 2 in float32: greedy tokens on the card equal
-   the CPU's from the same weights, logits within rtol 1e-4, atol 1e-4.
+   the CPU's from the same weights, logits within rtol 1e-4, atol 1e-4;
+6. scan kernel — K3 (``selective_scan``) against its plain version on the
+   card, y and the final state: the sweeps of tests/test_kernels.py in
+   float32 and bfloat16, ragged S and d, N 8 and 16, S over many staged
+   chunks, the model's bf16 x with fp32 dt and strided B, C, and the
+   slice's shape (B 4, S 1024, d 16,384, N 16); then CUDA-event timings (L2
+   flushed) of the kernel and the plain version at B 4 × S 1024, B 1 × S
+   4096 and B 1 × S 32,768, beside the bound (the SFU's exponentials, the
+   bytes, the fp32 flop);
+7. Jamba slice — (a) one 8-layer period of ``jamba-1.5-large-398b`` at full
+   width without experts (depth 72 → 8, every layer's FFN the dense SwiGLU)
+   in bfloat16 through ``repro_torch.launch.generate.generate`` (batch 4,
+   prompt 1024, 32 new tokens): K3 must launch once per Mamba layer of the
+   prefill (7) and K2 once (the attention layer); init, prefill and
+   per-token decode times and peak memory; (b) prefill(t[:1024]) then 31
+   decode steps against forward(t) at S = 1056, in bfloat16 beside two
+   measured distances between correct bf16 forwards, then a torch.profiler
+   window over a prefill and 8 decode steps; and in float32 (36 GB) at
+   tests/test_models.py's tolerances;
+8. card against CPU — reduced Jamba (the whole published plan, MoE with 4
+   experts) in float32: greedy tokens on the card equal the CPU's, logits
+   within rtol 1e-4, atol 5e-5.
 
 Float32 products run in full float32 on the card: TF32 is switched off for
 both cuBLAS matmuls and cuDNN, so card-against-CPU differences are summation
@@ -48,8 +70,9 @@ order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(K1 and K2), each with its launches on its main path (phase 3 for K1, the
-generate run of phase 5a for K2) and its times at the main path's shape.
+(K1, K2 and K3), each with its launches on its main path (phase 3 for K1,
+the generate run of phase 5a for K2, that of phase 7a for K3) and its times
+at the main path's shape.
 """
 from __future__ import annotations
 
@@ -108,17 +131,13 @@ def environment(torch):
     log(f"[env] torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    from concurrent.futures import ThreadPoolExecutor
-
-    from repro_torch.kernels import fl_aggregate, flash_attention
+    from repro_torch.kernels import (fl_aggregate, flash_attention,
+                                     selective_scan)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
-        futures = {m.__name__.rsplit(".", 1)[1]: pool.submit(m.library)
-                   for m in (fl_aggregate, flash_attention)}
-        built = {name: f.result() for name, f in futures.items()}
-    for name, lib in built.items():
-        log(f"[env] {name} built in {lib.seconds:.2f} s (nvcc): "
-            f"{lib.path.name}")
+    for module in (fl_aggregate, flash_attention, selective_scan):
+        lib = module.library()
+        log(f"[env] {module.__name__.rsplit('.', 1)[1]} built in "
+            f"{lib.seconds:.2f} s (nvcc): {lib.path.name}")
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[ptxas] {line.strip()}")
@@ -787,6 +806,341 @@ def depth2_card_vs_cpu(torch):
         f"{DEPTH2_TOL}); cpu {wall:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+# the slice's scan shape: Jamba's d_inner and state at batch 4, prompt 1024
+MAIN_SCAN = (4, 1024, 16384, 16)
+SCAN_TOL = dict(atol=1e-4, rtol=1e-3)     # tests/test_kernels.py, float32
+
+
+def sfu_rate(torch) -> tuple[float, str]:
+    """Exponentials a second: 16 a clock per SM × SMs × the card's maximum
+    SM clock (``nvidia-smi``)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * mhz * 1e6, f"{sms} SMs x 16 x {mhz:.0f} MHz"
+
+
+def scan_inputs(torch, B, S, d, N, x_dtype, dt_dtype, gen):
+    """tests/test_kernels.py's distributions on the card: x, B, C normal,
+    dt = softplus(normal − 1), A = −exp(0.3·normal), D normal."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    xc = randn(B, S, d).to(x_dtype)
+    dt = torch.nn.functional.softplus(randn(B, S, d) - 1).to(dt_dtype)
+    Bm, Cm = randn(B, S, N), randn(B, S, N)
+    A = -torch.exp(randn(d, N) * 0.3)
+    return xc, dt, Bm, Cm, A, randn(d)
+
+
+def check_scan(torch):
+    """K3 against its plain version over every case, y and the final state;
+    returns the max |kernel - plain| of y at the slice's shape."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(shape, dt, dt) for dt in (f32, bf16)
+             for shape in ((1, 64, 128, 16), (2, 256, 512, 16),
+                           (1, 128, 256, 8))]
+    cases += [(shape, f32, f32) for shape in (
+        (3, 77, 1000, 16), (1, 1, 130, 8), (2, 100, 300, 8),
+        (1, 33, 64, 16), (1, 2000, 256, 16))]
+    cases += [((2, 70, 256, 16), bf16, f32), (MAIN_SCAN, bf16, f32)]
+    worst_y = worst_h = main_err = 0.0
+    for shape, x_dtype, dt_dtype in cases:
+        xc, dt, Bm, Cm, A, D = scan_inputs(torch, *shape, x_dtype, dt_dtype,
+                                           gen)
+        if x_dtype != dt_dtype:    # the model's call: B, C column slices
+            B, S, _, N = shape
+            proj = torch.randn(B, S, 3 * N, generator=gen, device="cuda")
+            _, Bm, Cm = proj.split([N, N, N], dim=-1)
+        before = selective_scan_cuda.launches
+        y, h = ops.selective_scan(xc, dt, Bm, Cm, A, D)
+        want_y, want_h = ref.selective_scan_ref(xc, dt, Bm, Cm, A, D)
+        torch.cuda.synchronize()
+        if selective_scan_cuda.launches != before + 1:
+            raise AssertionError("K3 did not launch")
+        for got, want in ((y, want_y), (h, want_h)):
+            torch.testing.assert_close(got, want, **SCAN_TOL,
+                                       msg=lambda m: f"{shape} {x_dtype} "
+                                       f"{dt_dtype}: {m}")
+        err = float((y - want_y).abs().max())
+        worst_y = max(worst_y, err)
+        worst_h = max(worst_h, float((h - want_h).abs().max()))
+        if shape == MAIN_SCAN:
+            main_err = err
+        del xc, dt, Bm, Cm, y, h, want_y, want_h
+    log(f"[scan] {len(cases)} shape/dtype cases within tolerance (atol "
+        f"{SCAN_TOL['atol']}, rtol {SCAN_TOL['rtol']}, tests/test_kernels.py's "
+        f"float32 one, also for bf16 inputs: both sides read the same "
+        f"values): the sweeps of tests/test_kernels.py in fp32 and bf16, "
+        f"ragged S and d, N 8 and 16, S 2000 over 63 staged chunks, bf16 x "
+        f"with fp32 dt and strided B, C; max |kernel - plain| y "
+        f"{worst_y:.3e}, final state {worst_h:.3e}; B4 S1024 d16384 N16 "
+        f"(bf16 x): {main_err:.3e}")
+    return main_err
+
+
+def scan_bound(B, S, d, N, x_elem, bandwidth, sfu):
+    """(bound ms, 'bytes' | 'operations', bytes, exponentials, flop) of the
+    scan: x, dt (float32), B, C, A, D read once, y and h_last written once;
+    one exponential and 6 flop per (b, t, c, n), 3 flop per (b, t, c)."""
+    nbytes = (B * S * d * (x_elem + 4 + 4) + 2 * B * S * N * 4 + d * N * 4
+              + d * 4 + B * d * N * 4)
+    exps = B * S * d * N
+    flop = 6 * exps + 3 * B * S * d
+    t_bytes = nbytes / bandwidth * 1e3
+    t_ops = max(exps / sfu, flop / FP32_PEAK) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, exps, flop)
+
+
+def time_scan(torch, bandwidth, sfu):
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")   # 256 MB > L2
+    rows = {}
+    for shape, iters in ((MAIN_SCAN, 50), ((1, 4096, 16384, 16), 20),
+                         ((1, 32768, 16384, 16), 5)):
+        B, S, d, N = shape
+        args = scan_inputs(torch, B, S, d, N, torch.bfloat16, torch.float32,
+                           gen)
+        t_kernel = time_ms(torch, lambda: ops.selective_scan(*args), flush,
+                           iters=iters, warmup=2)
+        if S <= 4096:
+            t_plain = time_ms(torch, lambda: ref.selective_scan_ref(*args),
+                              flush, iters=3, warmup=1)
+            note = ""
+        else:
+            t_plain = None
+            note = (f" (plain version not run: {S} steps of ~8 launches "
+                    f"each)")
+        bound, by, nbytes, exps, flop = scan_bound(B, S, d, N, 2, bandwidth,
+                                                   sfu)
+        rows[shape] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=None,
+                           bound_ms=bound, bound_by=by)
+        plain_txt = "n/a" if t_plain is None else f"{t_plain:.4f} ms"
+        log(f"[scan-time] B={B} S={S} d={d} N={N} bf16 x, fp32 dt: kernel "
+            f"{t_kernel:.4f} ms, plain {plain_txt}, library none (no single "
+            f"PyTorch call), bound {bound:.4f} ms ({by}: "
+            f"{exps / 1e9:.3f} G exp at {sfu / 1e12:.3f} T/s = "
+            f"{exps / sfu * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB = "
+            f"{nbytes / bandwidth * 1e3:.4f} ms, {flop / 1e9:.2f} GFLOP = "
+            f"{flop / FP32_PEAK * 1e3:.4f} ms), kernel at "
+            f"{100 * bound / t_kernel:.1f}% of the bound{note}")
+        del args
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+# bf16 noise of the period's logits at full width: two correct bf16
+# forwards (through K2 and K3 or their plain versions; a batch of 4 or each
+# sequence alone) lie 0.117 apart on an H100, as far as decode lies from
+# forward (0.125); the limit is about twice that.  float32 is held to
+# tests/test_models.py's limits.
+JAMBA_BF16_TOL = 0.25
+
+
+def jamba_period_config():
+    """One 8-layer period of Jamba at full width, without experts: every
+    layer takes the config's dense SwiGLU (d_ff = the expert width)."""
+    from repro_torch.configs import get
+    return dataclasses.replace(get(JAMBA), n_layers=8, moe=None)
+
+
+def jamba_period(torch):
+    """(a): the period through generate's function; returns (K3 launches,
+    K2 launches) of that run, and the model for (b)."""
+    from repro_torch.configs import get
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    from repro_torch.launch import generate
+    from repro_torch.models.mamba import _dims
+    from repro_torch.obs.telemetry import get_telemetry
+
+    full, cfg = get(JAMBA), jamba_period_config()
+    di, dt_rank, N, k = _dims(cfg)
+    plan = full.layer_plan()
+    n_moe = sum(f == "moe" for _, f in plan)
+    expert_gb = (n_moe * full.moe.num_experts * 3 * full.d_model
+                 * full.moe.d_ff_expert * 2 / 1e9)
+    n_mamba = sum(m == "mamba" for m, _ in plan)
+    log(f"[jamba] config {JAMBA} cut: depth {full.n_layers} -> "
+        f"{cfg.n_layers} (one period: {n_mamba} mamba layers, attention at "
+        f"index {full.mixer_pattern.index('attn')}); experts -> none (the "
+        f"{n_moe} MoE layers of a period hold {expert_gb:.1f} GB of expert "
+        f"weights in bf16; each layer takes the dense SwiGLU, d_ff "
+        f"{cfg.d_ff}); widths as published: d {cfg.d_model}, d_inner {di}, "
+        f"N {N}, conv {k}, dt_rank {dt_rank}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads hd {cfg.hd}, vocab {cfg.vocab}; bf16, random weights from "
+        f"seed 0")
+    get_telemetry().reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in (fl_aggregate_cuda, flash_attention_cuda,
+                   selective_scan_cuda):
+        kernel.launches = 0
+    out = generate.generate(cfg, batch=4, prompt_len=1024, new_tokens=32,
+                            seed=0)
+    k3, k2 = selective_scan_cuda.launches, flash_attention_cuda.launches
+    k1 = fl_aggregate_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model = out.pop("model")
+    params = sum(p.numel() for p in model.parameters())
+    if k3 != n_mamba or k2 != 1:
+        raise AssertionError(f"a prefill of the period launched K3 {k3} "
+                             f"times (expected {n_mamba}) and K2 {k2} times "
+                             f"(expected 1)")
+    tokens = out["tokens"]
+    if tokens.shape != (4, 32) or not bool(((tokens >= 0)
+                                            & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"malformed tokens {tuple(tokens.shape)}")
+    init = get_telemetry().span_stats("serve.init")["total_s"]
+    log(f"[jamba] period at full width: {params / 1e9:.2f} B params "
+        f"({params * 2 / 1e9:.1f} GB bf16), batch 4, prompt 1024, 32 new "
+        f"tokens: init {init:.2f} s, prefill (cold) "
+        f"{out['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{out['decode_s_per_token'] * 1e3:.2f} ms/token, peak memory "
+        f"{peak:.2f} GB; K3 launches={k3} (= mamba layers), K2 "
+        f"launches={k2} (= attention layers), K1 launches={k1}")
+    return k3, model
+
+
+def jamba_decode_parity(torch, model, dtype):
+    """(b): on the card, prefill(t[:1024]) + 31 decode steps against
+    forward(t) at S = 1056, for the period at full width.  float32: within
+    tests/test_models.py's 2e-2 / 5e-2.  bfloat16: within JAMBA_BF16_TOL,
+    printed beside the two distances between correct bf16 forwards that
+    set it, measured again in this run (through K2 and K3 against through
+    their plain versions; the batch of 4 against each sequence alone, which
+    changes only how cuBLAS tiles and rounds the projections, as decode's
+    M = 4 does).  Then, in bf16,
+    the warm prefill and the profiler window over one prefill and 8 decode
+    steps."""
+    from repro_torch import random as jr
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    tols = (PREFILL_TOL, DECODE_TOL) if dtype == "float32" else (
+        JAMBA_BF16_TOL, JAMBA_BF16_TOL)
+    B, P, N = 4, 1024, 32
+    toks = jr.randint(jr.PRNGKey(2), (B, P + N), 0, cfg.vocab, device="cuda")
+    with torch.inference_mode():
+        T.prefill(model, tokens=toks[:, :P], capacity=P + N)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T.prefill(model, tokens=toks[:, :P], capacity=P + N)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        full, _ = T.forward(model, tokens=toks)
+        worst, err, rel, agree = decode_against_forward(T, model, toks, P, N,
+                                                        full, tols)
+        log(f"[jamba] {dtype}: on the card, prefill(t[:{P}]) + {N - 1} "
+            f"decode steps against forward(t) at S={P + N}: prefill logits "
+            f"within {tols[0]} (worst {worst[0]:.3f} of it), decode within "
+            f"{tols[1]} (worst {worst[1]:.3f}); max |diff| {err:.3e}, worst "
+            f"relative L2 {rel:.3e}, mean |logit| "
+            f"{float(full[:, P - 1:].abs().mean()):.3f}; argmax equal at "
+            f"{agree} of {B * N}; warm prefill {warm * 1e3:.1f} ms")
+        if dtype == "bfloat16":
+            tail = full[:, P - 1:]
+            with swapped(ops, "flash_attention", ref.flash_attention_ref), \
+                    swapped(ops, "selective_scan", ref.selective_scan_ref):
+                other, _ = T.forward(model, tokens=toks)
+            diff = tail - other[:, P - 1:]
+            log(f"[jamba] bfloat16, two correct forwards, through K2 and K3 "
+                f"against through their plain versions: max |diff| "
+                f"{float(diff.abs().max()):.3e}, relative L2 "
+                f"{float(diff.norm() / tail.norm()):.3e}")
+            other = torch.cat([T.forward(model, tokens=toks[b:b + 1])[0]
+                               for b in range(B)])
+            diff = tail - other[:, P - 1:]
+            log(f"[jamba] bfloat16, two correct forwards, the batch of {B} "
+                f"against each sequence alone: max |diff| "
+                f"{float(diff.abs().max()):.3e}, relative L2 "
+                f"{float(diff.norm() / tail.norm()):.3e}")
+            del other, diff, tail
+        del full
+        if max(worst) > 1.0:
+            raise AssertionError(f"{dtype}: prefill/decode logits differ "
+                                 f"from forward beyond the tolerance "
+                                 f"({max(worst):.3f} of it)")
+        if dtype == "bfloat16":
+            trace_llm(torch, T, model, toks, P, 9)
+
+
+def jamba_float32(torch):
+    """(b) in float32: the period at full width (36 GB), seed 1."""
+    from repro_torch import random as jr
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(jamba_period_config(), dtype="float32")
+    t0 = time.perf_counter()
+    model = T.init_params(jr.PRNGKey(1), cfg)
+    torch.cuda.synchronize()
+    log(f"[jamba] float32 period initialised in "
+        f"{time.perf_counter() - t0:.2f} s")
+    jamba_decode_parity(torch, model, "float32")
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+JAMBA_CPU_TOL = dict(rtol=1e-4, atol=5e-5)   # tests/test_torch_transformer.py
+
+
+def jamba_card_vs_cpu(torch):
+    """Reduced Jamba (the whole published plan: 7 Mamba layers, attention,
+    MoE with 4 experts on every other layer) in float32, TF32 off, on the
+    card and on the CPU from the same weights.  Tolerance rtol 1e-4, atol
+    5e-5, the CPU tests' against JAX for this stack: float32 on both sides,
+    sums in other orders through eight layers."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    from repro_torch.models import transformer as T
+
+    cfg = get(JAMBA).reduced()
+    model = T.init_params(jr.PRNGKey(7), cfg)
+    prompts = jr.randint(jr.PRNGKey(8), (4, 128), 0, cfg.vocab,
+                         device="cuda")
+    before = selective_scan_cuda.launches
+    tok_card, lg_card = greedy(torch, T, model, prompts, 8)
+    n_mamba = sum(m == "mamba" for m, _ in cfg.layer_plan())
+    if selective_scan_cuda.launches != before + n_mamba:
+        raise AssertionError("the reduced prefill did not run K3 per Mamba "
+                             "layer")
+    cpu = T.Transformer(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    tok_cpu, lg_cpu = greedy(torch, T, cpu, prompts.cpu(), 8)
+    wall = time.perf_counter() - t0
+    if not torch.equal(tok_card, tok_cpu):
+        raise AssertionError(f"greedy tokens differ:\n{tok_card}\n"
+                             f"{tok_cpu}")
+    torch.testing.assert_close(lg_card, lg_cpu, **JAMBA_CPU_TOL)
+    err = float((lg_card - lg_cpu).abs().max())
+    log(f"[jamba] reduced ({cfg.n_layers} layers, d {cfg.d_model}, MoE "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}), float32 (TF32 "
+        f"off), batch 4, prompt 128, 8 new tokens: greedy tokens on the card "
+        f"equal the CPU's; logits max |card - cpu| = {err:.3e} (tolerance "
+        f"rtol {JAMBA_CPU_TOL['rtol']}, atol {JAMBA_CPU_TOL['atol']}); K3 "
+        f"launches={n_mamba} in the prefill; cpu {wall:.2f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -812,6 +1166,18 @@ def main() -> int:
     prefill_decode_parity(torch, "float32")
     depth2_card_vs_cpu(torch)
     prefill_decode_parity(torch, "bfloat16")
+    sfu, sfu_name = sfu_rate(torch)
+    log(f"[env] K3's bound uses the SFU rate {sfu_name} = "
+        f"{sfu / 1e12:.3f} T exp/s")
+    scan_err = check_scan(torch)
+    scan_timing = time_scan(torch, bandwidth, sfu)
+    scan_launches, model = jamba_period(torch)
+    jamba_decode_parity(torch, model, "bfloat16")
+    del model
+    torch.cuda.empty_cache()
+    jamba_float32(torch)
+    torch.cuda.empty_cache()
+    jamba_card_vs_cpu(torch)
     kernels = {"kernels": [{
         "name": "fl_aggregate",
         "route": "cuda",
@@ -828,10 +1194,18 @@ def main() -> int:
         "launches": attn_launches,
         "max_abs_err": attn_err,
         **attn_timing[MAIN_ATTN],
+    }, {
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan.py:66",
+        "launches": scan_launches,
+        "max_abs_err": scan_err,
+        **scan_timing[MAIN_SCAN],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; K1 timings "
-        f"at R={K}, M={MAIN_M} fp32, K2 at B4 S1024 H32 KV8 hd64 bf16, on "
-        f"{smi}")
+        f"at R={K}, M={MAIN_M} fp32, K2 at B4 S1024 H32 KV8 hd64 bf16, K3 at "
+        f"B4 S1024 d16384 N16 (bf16 x), on {smi}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 kernel, a CPU tensor to its plain version in :mod:`.ref`.  Nothing else —
 no fallback from one to the other.
 
-:func:`flash_attention` launches K2 (:mod:`.flash_attention`).  The three
+:func:`flash_attention` launches K2 (:mod:`.flash_attention`) and
+:func:`selective_scan` K3 (:mod:`.selective_scan`).  The three
 modes of ``repro.kernels.ops`` for eq. (3) all launch the one K1 kernel
 (:func:`.fl_aggregate.fl_aggregate_cuda`) with folded scalars:
 
@@ -19,6 +20,7 @@ import torch
 from . import ref
 from .fl_aggregate import fl_aggregate_cuda
 from .flash_attention import flash_attention_cuda
+from .selective_scan import selective_scan_cuda
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -65,3 +67,12 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None):
     if not _on_card(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def selective_scan(xc, dt, Bm, Cm, A, D):
+    """Mamba S6 scan from a zero state: ``xc``, ``dt [B,S,d]``, ``Bm``,
+    ``Cm [B,S,N]``, ``A [d,N]``, ``D [d]`` → ``(y [B,S,d], h_last [B,d,N])``
+    in float32."""
+    if not _on_card(xc):
+        return ref.selective_scan_ref(xc, dt, Bm, Cm, A, D)
+    return selective_scan_cuda(xc, dt, Bm, Cm, A, D)

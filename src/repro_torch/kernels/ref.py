@@ -67,3 +67,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def selective_scan_ref(xc: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                       Cm: torch.Tensor, A: torch.Tensor, D: torch.Tensor):
+    """Mamba S6 recurrence in float32, one timestep at a time:
+
+        h_t = exp(dt_t·A) ⊙ h_{t−1} + (dt_t·B_t)·x_t,   h_0 = 0
+        y_t = h_t·C_t + D ⊙ x_t
+
+    xc, dt: [B, S, d]; Bm, Cm: [B, S, N]; A: [d, N]; D: [d] →
+    ``(y [B, S, d], h_last [B, d, N])``, both float32.  The state is the
+    only ``[B, d, N]`` tensor kept: the ``[B, S, d, N]`` one of the
+    associative form is never built.
+    """
+    xc, dt, Bm, Cm = xc.float(), dt.float(), Bm.float(), Cm.float()
+    A, D = A.float(), D.float()
+    B, S, d = xc.shape
+    h = torch.zeros(B, d, A.shape[1], dtype=torch.float32, device=xc.device)
+    y = torch.empty(B, S, d, dtype=torch.float32, device=xc.device)
+    for t in range(S):
+        dt_t = dt[:, t, :, None]                                 # [B,d,1]
+        h = torch.exp(dt_t * A) * h \
+            + (dt_t * Bm[:, t, None, :]) * xc[:, t, :, None]
+        y[:, t] = (h * Cm[:, t, None, :]).sum(-1) + D * xc[:, t]
+    return y, h

@@ -1,7 +1,7 @@
 """Generic decoder stack: embed → layers → norm → logits.  Counterpart of
-``repro.models.transformer`` for the attention mixer and the dense SwiGLU
-FFN; the ``mamba``, ``mlstm`` and ``slstm`` mixers and the ``moe`` FFN are
-not ported yet and raise ``NotImplementedError``.
+``repro.models.transformer`` for the ``attn`` and ``mamba`` mixers and the
+dense SwiGLU and ``moe`` FFNs; the ``mlstm`` and ``slstm`` mixers are not
+ported yet and raise ``NotImplementedError``.
 
 :class:`Transformer` is an ``nn.Module`` whose layers are an
 ``nn.ModuleList`` of :class:`Block` (JAX stacks them on a leading
@@ -15,6 +15,8 @@ Entry points (eager; call them under ``torch.inference_mode()``):
   prefill(model, tokens|embeds, capacity)       → (logits [B,1,V], caches)
   decode_step(model, token, caches)             → (logits [B,1,V], caches)
   init_caches(cfg, batch, capacity, dtype, device)
+
+``aux`` is the sum of the MoE layers' load-balance losses (0 without MoE).
 """
 from __future__ import annotations
 
@@ -24,8 +26,10 @@ from torch import nn
 from .. import random as jr
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from . import attention
+from . import attention, mamba, moe
 from .layers import dense_init, init_swiglu, rms_norm, swiglu
+
+MIXERS = ("attn", "mamba")
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -41,15 +45,12 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first mixer or FFN of
-    ``cfg`` that the port does not have yet."""
-    for mixer, ffn in cfg.layer_plan():
-        if mixer != "attn":
+    """Raise ``NotImplementedError`` naming the first mixer of ``cfg`` that
+    the port does not have yet."""
+    for mixer, _ in cfg.layer_plan():
+        if mixer not in MIXERS:
             raise NotImplementedError(
                 f"{cfg.name}: the {mixer!r} mixer is not ported yet")
-        if ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the 'moe' FFN is not ported yet")
 
 
 class SwiGLU(nn.Module):
@@ -67,32 +68,54 @@ class Block(nn.Module):
     """One layer: ``x + mixer(rms_norm(x))``, then ``+ ffn(rms_norm(x))``
     when the layer has an FFN (JAX's ``_apply_layer``)."""
 
-    def __init__(self, cfg: ArchConfig, ffn: str, dtype, device=None):
+    def __init__(self, cfg: ArchConfig, mixer: str, ffn: str, dtype,
+                 device=None):
         super().__init__()
         self.cfg = cfg
+        self.mixer_kind, self.ffn_kind = mixer, ffn
         self.ln1 = _param((cfg.d_model,), dtype, device)
-        self.mixer = attention.Attention(cfg, dtype, device)
+        if mixer == "attn":
+            self.mixer = attention.Attention(cfg, dtype, device)
+        else:
+            self.mixer = mamba.Mamba(cfg, dtype, device)
         if ffn != "none":
             self.ln2 = _param((cfg.d_model,), dtype, device)
+        if ffn == "dense":
             self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+        elif ffn == "moe":
+            self.ffn = moe.MoE(cfg, dtype, device)
+
+    def _mix(self, h, positions, mode, cache, capacity):
+        cfg, p = self.cfg, self.mixer
+        if self.mixer_kind == "attn":
+            if mode == "train":
+                return attention.attn_forward(p, cfg, h, positions), cache
+            if mode == "prefill":
+                return attention.attn_prefill(p, cfg, h, positions,
+                                              capacity)
+            return attention.attn_decode(p, cfg, h, cache)
+        if mode == "train":
+            return mamba.mamba_forward(p, cfg, h), cache
+        if mode == "prefill":
+            return mamba.mamba_forward(p, cfg, h, return_cache=True)
+        return mamba.mamba_decode(p, cfg, h, cache)
 
     def forward(self, x, positions, mode: str = "train", cache=None,
                 capacity: int = 0):
-        """Returns ``(x, new_cache)``."""
+        """Returns ``(x, new_cache, aux)``; ``aux`` is None unless the
+        layer's FFN is MoE."""
         cfg = self.cfg
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
-        new_cache = cache
-        if mode == "train":
-            y = attention.attn_forward(self.mixer, cfg, h, positions)
-        elif mode == "prefill":
-            y, new_cache = attention.attn_prefill(self.mixer, cfg, h,
-                                                  positions, capacity)
-        else:
-            y, new_cache = attention.attn_decode(self.mixer, cfg, h, cache)
+        y, new_cache = self._mix(rms_norm(x, self.ln1, cfg.norm_eps),
+                                 positions, mode, cache, capacity)
         x = x + y
-        if hasattr(self, "ffn"):
+        aux = None
+        if self.ffn_kind == "dense":
             x = x + self.ffn(rms_norm(x, self.ln2, cfg.norm_eps))
-        return x, new_cache
+        elif self.ffn_kind == "moe":
+            y, aux = moe.moe_forward(self.ffn, cfg,
+                                     rms_norm(x, self.ln2, cfg.norm_eps))
+            x = x + y
+        return x, new_cache, aux
 
 
 class Transformer(nn.Module):
@@ -109,8 +132,8 @@ class Transformer(nn.Module):
         plan = cfg.layer_plan()
         self.embed = _param((cfg.vocab, cfg.d_model), dtype, device)
         self.layers = nn.ModuleList(
-            Block(cfg, ffn, dtype, device)
-            for _ in range(cfg.n_repeats) for _, ffn in plan)
+            Block(cfg, mixer, ffn, dtype, device)
+            for _ in range(cfg.n_repeats) for mixer, ffn in plan)
         self.final_norm = _param((cfg.d_model,), dtype, device)
         if not cfg.tie_embeddings:
             self.unembed = _param((cfg.d_model, cfg.vocab), dtype, device)
@@ -126,12 +149,18 @@ class Transformer(nn.Module):
 def _init_layer(block: Block, key, cfg: ArchConfig, dtype, device):
     kmix, kffn = jr.split(key)
     block.ln1.fill_(1.0)
-    attention.init_attn(block.mixer, kmix)
-    if hasattr(block, "ffn"):
+    if block.mixer_kind == "attn":
+        attention.init_attn(block.mixer, kmix)
+    else:
+        mamba.init_mamba(block.mixer, kmix)
+    if block.ffn_kind != "none":
         block.ln2.fill_(1.0)
+    if block.ffn_kind == "dense":
         for name, w in init_swiglu(kffn, cfg.d_model, cfg.d_ff, dtype,
                                    device).items():
             getattr(block.ffn, name).copy_(w)
+    elif block.ffn_kind == "moe":
+        moe.init_moe(block.ffn, kffn)
 
 
 @torch.no_grad()
@@ -155,17 +184,25 @@ def init_params(key, cfg: ArchConfig, device=None) -> Transformer:
     return model
 
 
+def _layer_cache(cfg: ArchConfig, mixer: str, batch: int, capacity: int,
+                 dtype, device):
+    if mixer == "attn":
+        cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
+            else capacity
+        return attention.init_cache(cfg, batch, cap, dtype, device)
+    return mamba.init_mamba_cache(cfg, batch, dtype, device)
+
+
 def init_caches(cfg: ArchConfig, batch: int, capacity: int, dtype=None,
                 device=None) -> list:
-    """One empty :class:`attention.KVCache` per layer, capped at the
-    sliding window when there is one."""
+    """One empty cache per layer, of its mixer's kind: an
+    :class:`attention.KVCache` (capped at the sliding window when there is
+    one) or a :class:`mamba.MambaCache`."""
     check_ported(cfg)
     device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
-    cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
-        else capacity
-    return [attention.init_cache(cfg, batch, cap, dtype, device)
-            for _ in range(cfg.n_layers)]
+    return [_layer_cache(cfg, mixer, batch, capacity, dtype, device)
+            for _ in range(cfg.n_repeats) for mixer, _ in cfg.layer_plan()]
 
 
 # ---------------------------------------------------------------------------
@@ -194,9 +231,12 @@ def forward_hidden(model: Transformer, tokens=None, embeds=None):
     x = _embed(model, tokens, embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.layers:
-        x, _ = block(x, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, a = block(x, positions)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(model: Transformer, tokens=None, embeds=None):
@@ -214,7 +254,7 @@ def prefill(model: Transformer, tokens=None, embeds=None,
     positions = _positions(B, S, x.device)
     caches = []
     for block in model.layers:
-        x, cache = block(x, positions, "prefill", capacity=capacity)
+        x, cache, _ = block(x, positions, "prefill", capacity=capacity)
         caches.append(cache)
     return _logits(model, x[:, -1:]), caches
 
@@ -224,6 +264,6 @@ def decode_step(model: Transformer, token, caches):
     x = _embed(model, tokens=token)
     new_caches = []
     for block, cache in zip(model.layers, caches):
-        x, cache = block(x, None, "decode", cache)
+        x, cache, _ = block(x, None, "decode", cache)
         new_caches.append(cache)
     return _logits(model, x), new_caches

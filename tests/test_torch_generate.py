@@ -1,6 +1,7 @@
 """``repro_torch.launch.generate`` against ``repro.launch.generate``: with
-``--arch llama3.2-1b --reduced`` (float32) and the same seed, the port on
-the CPU prints the JAX entry point's greedy tokens.  Both draw their weights and
+``--arch llama3.2-1b --reduced`` or ``--arch jamba-1.5-large-398b
+--reduced`` (float32; Jamba's Mamba, attention and MoE layers) and the
+same seed, the port on the CPU prints the JAX entry point's greedy tokens.  Both draw their weights and
 prompts from one threefry key; the tokens are compared exactly (argmax of
 logits that agree to float32 summation order)."""
 import json
@@ -26,6 +27,25 @@ def test_port_prints_the_jax_tokens(capsys, seed):
     assert result["tokens"].shape == (4, 16)
     for span in ("serve.init", "serve.prefill", "serve.decode_step"):
         assert f"span {span}:" in out
+
+
+@pytest.mark.parametrize("seed", ["0", "3"])
+def test_port_prints_the_jax_tokens_for_jamba(capsys, seed):
+    argv = ["--arch", "jamba-1.5-large-398b", "--reduced", "--seed", seed]
+    jgen.main(argv)
+    want = sample_lines(capsys.readouterr().out)
+    result = tgen.main(argv + ["--device", "cpu"])
+    assert len(want) == 2 and sample_lines(capsys.readouterr().out) == want
+    assert result["tokens"].shape == (4, 16)
+
+
+def test_generate_takes_a_built_config(capsys):
+    """``generate`` is ``main``'s body for a config already built."""
+    cfg = tgen.configs.get("jamba-1.5-large-398b").reduced()
+    result = tgen.generate(cfg, batch=2, prompt_len=5, new_tokens=3,
+                           device="cpu")
+    assert result["tokens"].shape == (2, 3)
+    assert "jamba-1.5-large-398b-smoke: batch=2" in capsys.readouterr().out
 
 
 def test_serve_manifest_and_counters(tmp_path, monkeypatch):

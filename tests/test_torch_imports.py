@@ -32,6 +32,7 @@ def test_the_check_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"random.py", "engine.py", "ops.py", "chip_smoke.py",
             "flash_attention.py", "attention.py", "transformer.py",
-            "generate.py", "telemetry.py", "llama3_2_1b.py"} <= names
+            "generate.py", "telemetry.py", "llama3_2_1b.py",
+            "selective_scan.py", "mamba.py", "moe.py"} <= names
     assert forbidden("jax.numpy") and forbidden("repro.fl")
     assert not forbidden("repro_torch.fl")
