@@ -24,12 +24,15 @@ Phases, each reporting on its own lines:
    accuracy and loss within rtol 1e-4, atol 1e-5;
 4. attention kernel — K2 (``flash_attention``) against its plain version on
    the card: the sweeps of tests/test_kernels.py (MHA, GQA 2:1 and 4:1,
-   MQA, hd 64 and 128), windows 32 and 128, ``causal=False``, ragged S (1,
-   77, 1000), float32 and bfloat16, the first token attending only to
-   itself, and the slice's own shape (B 4, S 1024, H 32, KV 8, hd 64,
-   bf16); then CUDA-event timings (L2 flushed) of the kernel, the plain
-   version and ``scaled_dot_product_attention`` at B 4 × S 1024, B 1 × S
-   4096 and B 1 × S 32,768, beside the bound;
+   MQA, hd 64 and 128), windows 1 to 128, ``causal=False``, ragged S (1,
+   77, 129, 200, 1000), G = 8, more work items than blocks, q/k/v as views
+   of one fused buffer, float32 and bfloat16, the first token attending
+   only to itself, and the slices' own shapes (B 4, S 1024, H 32, KV 8, hd
+   64 and H 64, KV 8, hd 128, bf16); then CUDA-event timings (L2 flushed)
+   of the kernel, the plain version and ``scaled_dot_product_attention`` at
+   B 4 × S 1024, B 1 × S 4096 and B 1 × S 32,768 (hd 64) and at Jamba's
+   B 4 × S 1024 (hd 128), beside the bound, and the wrapper's host time a
+   call (bf16 encodes its TMA tensor maps; float32 has none);
 5. LLM slice — (a) ``llama3.2-1b`` at full width and depth in bfloat16
    through ``repro_torch.launch.generate.main`` (batch 4, prompt 1024, 32
    new tokens): K2 must launch once per layer of the prefill (16); init,
@@ -45,7 +48,8 @@ Phases, each reporting on its own lines:
 6. scan kernel — K3 (``selective_scan``) against its plain version on the
    card, y and the final state: the sweeps of tests/test_kernels.py in
    float32 and bfloat16, ragged S and d, N 8 and 16, S over many staged
-   chunks, the model's bf16 x with fp32 dt and strided B, C, and the
+   chunks, every x/dt dtype mix, the model's bf16 x with fp32 dt and
+   strided B, C, and the
    slice's shape (B 4, S 1024, d 16,384, N 16); then CUDA-event timings (L2
    flushed) of the kernel and the plain version at B 4 × S 1024, B 1 × S
    4096 and B 1 × S 32,768, beside the bound (the SFU's exponentials, the
@@ -393,6 +397,8 @@ def slice_runs(torch):
 
 # the slice's attention shape: llama3.2-1b's heads at batch 4, prompt 1024
 MAIN_ATTN = (4, 1024, 32, 8, 64)
+# Jamba's attention layer at the period's prefill: 64 heads, 8 KV, hd 128
+JAMBA_ATTN = (4, 1024, 64, 8, 128)
 
 
 def attn_inputs(torch, B, S, H, KV, hd, dtype, gen):
@@ -418,10 +424,31 @@ def check_flash(torch):
         for S in (1, 77, 1000):
             cases.append((dname, (2, S, 8, 2, 64), True, None))
             cases.append((dname, (1, S, 4, 4, 128), False, None))
+        # the bf16 kernel's edges: S past a multiple of its 128-row query
+        # tile and 128-key K/V tile, windows inside one tile, Jamba's G = 8
+        # at hd 128, and more work items than the persistent grid's blocks
+        for hd in (64, 128):
+            for S in (129, 200, 1000):
+                cases.append((dname, (2, S, 8, 2, hd), True, None))
+            for window in (1, 7, 100):
+                cases.append((dname, (2, 300, 8, 2, hd), True, window))
+                cases.append((dname, (1, 300, 4, 1, hd), False, window))
+            cases.append((dname, (1, 300, 64, 8, hd), True, None))
+            cases.append((dname, (8, 1000, 16, 4, hd), True, None))
+        for hd in (64, 128):      # q, k, v as views of one fused buffer
+            cases.append((dname, (2, 130, 8, 2, hd), "fused", None))
     cases.append(("bfloat16", MAIN_ATTN, True, None))
+    cases.append(("bfloat16", JAMBA_ATTN, True, None))
     worst, main_err = {}, 0.0
     for dname, shape, causal, window in cases:
-        q, k, v = attn_inputs(torch, *shape, dtypes[dname], gen)
+        if causal == "fused":
+            B, S, H, KV, hd = shape
+            fused = torch.randn(B, S, H + 2 * KV, hd, generator=gen,
+                                device="cuda").to(dtypes[dname])
+            q, k, v = fused.split([H, KV, KV], dim=2)
+            causal = True
+        else:
+            q, k, v = attn_inputs(torch, *shape, dtypes[dname], gen)
         before = flash_attention_cuda.launches
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -444,9 +471,11 @@ def check_flash(torch):
     torch.testing.assert_close(ops.flash_attention(q, k, v)[0, 0], v[0, 0],
                                atol=1e-5, rtol=0)
     log(f"[attn] {len(cases)} shape/mask/dtype cases within tolerance "
-        f"(sweeps of tests/test_kernels.py, windows 32/128, causal=False, "
-        f"S in 1/77/1000, B4 S1024 H32 KV8 hd64 bf16: max err "
-        f"{main_err:.3e}); the first token attends only to itself")
+        f"(sweeps of tests/test_kernels.py, windows 1/7/32/100/128, "
+        f"causal=False, S in 1/77/129/200/1000, G 8 at hd 64 and 128, B*H "
+        f"up to 128, fused q/k/v views, the Jamba shape B4 S1024 H64 KV8 "
+        f"hd128; B4 S1024 H32 KV8 hd64 bf16: max err {main_err:.3e}); the "
+        f"first token attends only to itself")
     return main_err
 
 
@@ -468,7 +497,7 @@ def time_flash(torch, bandwidth):
     flush = torch.empty(256 * 2**20 // 4, device="cuda")   # 256 MB > L2
     rows = {}
     for shape, iters in ((MAIN_ATTN, 100), ((1, 4096, 32, 8, 64), 30),
-                         ((1, 32768, 32, 8, 64), 5)):
+                         ((1, 32768, 32, 8, 64), 5), (JAMBA_ATTN, 50)):
         B, S, H, KV, hd = shape
         q, k, v = attn_inputs(torch, *shape, torch.bfloat16, gen)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -505,7 +534,31 @@ def time_flash(torch, bandwidth):
             f"{flop / t_kernel / 1e9:.1f} TFLOP/s = "
             f"{100 * bound / t_kernel:.1f}% of the bound{plain_note}")
         del q, k, v, qt, kt, vt
+    host_time_flash(torch, gen)
     return rows
+
+
+def host_time_flash(torch, gen, calls=200):
+    """The wrapper's host time per call at the main shape: bf16 (three
+    tensor maps encoded a call) against float32 (no maps), median of
+    ``calls`` calls on the host clock, each into an idle stream (a full
+    launch queue would make the host wait for the card)."""
+    from repro_torch.kernels import ops
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attn_inputs(torch, *MAIN_ATTN, dtype, gen)
+        for _ in range(5):
+            ops.flash_attention(q, k, v)
+        times = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.flash_attention(q, k, v)
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        log(f"[attn-host] {str(dtype).split('.')[1]}: wrapper host time "
+            f"{statistics.median(times) * 1e6:.1f} us a call (median of "
+            f"{calls}; bf16 encodes three tensor maps a call, float32 none)")
+        del q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -852,6 +905,11 @@ def check_scan(torch):
     cases += [(shape, f32, f32) for shape in (
         (3, 77, 1000, 16), (1, 1, 130, 8), (2, 100, 300, 8),
         (1, 33, 64, 16), (1, 2000, 256, 16))]
+    # the kernel's edges: d past a multiple of its 64-channel block, S past
+    # a multiple of its 32-step chunk, N 8 and 16, every x/dt dtype mix
+    cases += [(shape, x_dtype, dt_dtype)
+              for shape in ((2, 70, 100, 16), (1, 65, 130, 8))
+              for x_dtype in (f32, bf16) for dt_dtype in (f32, bf16)]
     cases += [((2, 70, 256, 16), bf16, f32), (MAIN_SCAN, bf16, f32)]
     worst_y = worst_h = main_err = 0.0
     for shape, x_dtype, dt_dtype in cases:
@@ -881,8 +939,9 @@ def check_scan(torch):
         f"{SCAN_TOL['atol']}, rtol {SCAN_TOL['rtol']}, tests/test_kernels.py's "
         f"float32 one, also for bf16 inputs: both sides read the same "
         f"values): the sweeps of tests/test_kernels.py in fp32 and bf16, "
-        f"ragged S and d, N 8 and 16, S 2000 over 63 staged chunks, bf16 x "
-        f"with fp32 dt and strided B, C; max |kernel - plain| y "
+        f"ragged S and d, N 8 and 16, S 2000 over 63 staged chunks, the four "
+        f"x/dt dtype mixes at d 100 and 130, bf16 x with fp32 dt and strided "
+        f"B, C; max |kernel - plain| y "
         f"{worst_y:.3e}, final state {worst_h:.3e}; B4 S1024 d16384 N16 "
         f"(bf16 x): {main_err:.3e}")
     return main_err

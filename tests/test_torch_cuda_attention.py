@@ -54,13 +54,19 @@ def check(q, k, v, **kw):
     (1, 1000, 8, 2, 128),    # ragged last tile
     (3, 77, 4, 4, 64),
     (2, 1, 4, 2, 64),        # one token
+    (2, 129, 8, 2, 64),      # one row past the 128-row query tile
+    (2, 200, 8, 2, 128),     # S past the 128-key K/V tile, hd 128
+    (1, 1000, 64, 8, 128),   # Jamba's G = 8 at hd 128
+    (1, 300, 64, 8, 64),     # G = 8 at hd 64
+    (8, 1000, 16, 4, 64),    # 1024 work items: more than the grid's blocks
+    (8, 1000, 16, 4, 128),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_version(card, B, S, H, KV, hd, dtype):
     check(*qkv(card, B, S, H, KV, hd, dtype, seed=S + H))
 
 
-@pytest.mark.parametrize("window", [1, 32, 128])
+@pytest.mark.parametrize("window", [1, 7, 32, 100, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [64, 128])
@@ -70,9 +76,13 @@ def test_window_and_noncausal(card, window, causal, dtype, hd):
     check(*qkv(card, 1, 300, 4, 2, hd, dtype, seed=1), causal=causal)
 
 
-def test_strided_views_are_read_in_place(card):
-    """q, k, v as views into one fused [B,S,H+2KV,hd] buffer."""
-    fused = torch.randn(2, 130, 16, 64, device=card, dtype=torch.bfloat16)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [130, 1000])
+def test_strided_views_are_read_in_place(card, hd, dtype, S):
+    """q, k, v as views into one fused [B,S,H+2KV,hd] buffer (the bf16
+    kernel's tensor maps take their strides)."""
+    fused = torch.randn(2, S, 16, hd, device=card).to(dtype)
     q, k, v = fused[:, :, :8], fused[:, :, 8:12], fused[:, :, 12:]
     assert not q.is_contiguous()
     check(q, k, v)

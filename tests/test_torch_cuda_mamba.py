@@ -77,12 +77,17 @@ def test_kernel_matches_plain_version(card, B, S, d, N, dtype):
 
 @pytest.mark.parametrize("B,S,d,N", [
     (3, 77, 1000, 16),     # ragged S and d
-    (1, 1, 130, 8),        # one step, a second block of 2 channels
+    (1, 1, 130, 8),        # one step, a third block of 2 channels
     (2, 100, 300, 8),      # S across 4 staged chunks of 32
     (1, 33, 64, 16),       # one step into the second chunk
+    (2, 70, 100, 16),      # d past the 64-channel block, odd rows of x
+    (1, 65, 129, 8),       # one channel into a third block
 ])
-def test_ragged_shapes_and_final_state(card, B, S, d, N):
-    check(*scan_inputs(card, B, S, d, N, torch.float32, seed=d))
+@pytest.mark.parametrize("x_dtype,dt_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_ragged_shapes_and_final_state(card, B, S, d, N, x_dtype, dt_dtype):
+    check(*scan_inputs(card, B, S, d, N, x_dtype, dt_dtype, seed=d))
 
 
 def test_model_dtypes_and_strided_b_c(card):
