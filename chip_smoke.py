@@ -7,14 +7,20 @@ Phases, each reporting on its own lines:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, the precision settings, and the ``nvcc`` builds of K1, K2
-   and K3, one after the other (from ``src/repro_torch/kernels/csrc``, into
+   and K3, all three at once (from ``src/repro_torch/kernels/csrc``, into
    ``kernels/_build``), with ptxas's registers and spills;
 2. kernel — K1 (``fl_aggregate``) in all three modes, float32 and bfloat16,
-   R ∈ {1, 10, 100} rows, M ∈ {77, 8193, 159012, 199210}, plus misaligned
+   R ∈ {1, 7, 10, 11, 12, 64, 65, 100, 1000} rows (directly loaded rows,
+   the ring, partial stages), M ∈ {77, 8193, 159012, 199210, 600001}
+   (narrow, misaligned rows, several tiles a block), aligned and misaligned
    views, against its plain PyTorch version on the card; NaN/Inf with the
-   guard on and off; then CUDA-event timings (L2 flushed before each launch)
-   of the kernel, the plain version and ``torch.addmv`` at the main path's
-   shape, beside the bandwidth bound;
+   guard on and off at R 4 and 64; two launches bit-equal; then CUDA-event
+   timings of the kernel and ``torch.addmv`` with the L2 dirty, clean and
+   warm (``time_ms``), and of the plain version, at R 10, 64, 100 and 1000
+   (M 159,012), R 10 and 100 (M 199,210) and bf16 R 100, beside the
+   bandwidth bound and the time of a trivial launch; the launch plans the
+   design rejected, timed beside the one it takes; the wrapper's host time
+   a call;
 3. slice — the quickstart simulation at full width and data scale (K = 10,
    the 784-200-10 MLP, 60,000/10,000 MNIST-like examples, non-IID d = 5,
    T = 12 rounds of 5 local steps of batch 10, ρ = 0.05, λ = 0.01) for
@@ -80,6 +86,7 @@ at the main path's shape.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -137,9 +144,11 @@ def environment(torch):
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     from repro_torch.kernels import (fl_aggregate, flash_attention,
                                      selective_scan)
+    modules = (fl_aggregate, flash_attention, selective_scan)
     t0 = time.perf_counter()
-    for module in (fl_aggregate, flash_attention, selective_scan):
-        lib = module.library()
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        libs = list(pool.map(lambda module: module.library(), modules))
+    for module, lib in zip(modules, libs):
         log(f"[env] {module.__name__.rsplit('.', 1)[1]} built in "
             f"{lib.seconds:.2f} s (nvcc): {lib.path.name}")
         for line in lib.log.splitlines():
@@ -186,11 +195,16 @@ def check_kernel(torch):
     worst = {}
     main_err = 0.0
     n = 0
+    # R: 1 to 11 load every row directly, 12 and up go through the ring in
+    # stages of 10 (fp32) or 16 (bf16) rows, so 12, 65 and 1000 end in a
+    # partial stage; M: 77 and 8193 are narrower than one tile a block,
+    # 199,210 leaves every other row 8 bytes off 16, 600,001 gives each
+    # block three tiles; offset 1 misaligns every operand
     for mode in ("plain", "subset", "guarded"):
         for dname, dtype in dtypes.items():
-            for R in (1, 10, 100):
-                for M in (77, 8193, MAIN_M, 199_210):
-                    for offset in ((0, 1) if R == 10 else (0,)):
+            for R in (1, 7, 10, 11, 12, 64, 65, 100, 1000):
+                for M in (77, 8193, MAIN_M, 199_210, 600_001):
+                    for offset in (0, 1):
                         g, d, mask, w = kernel_inputs(torch, R, M, dtype, gen,
                                                       offset)
                         before = fl_aggregate_cuda.launches
@@ -210,45 +224,80 @@ def check_kernel(torch):
                         if dname == "float32" and M == MAIN_M and R == K:
                             main_err = max(main_err, err)
                         n += 1
+                        del g, d, out, want
     for (mode, dname), err in sorted(worst.items()):
         log(f"[kernel] {mode:8s} {dname:8s} max |kernel - plain| = {err:.3e} "
             f"(tolerance atol {TOL[dname]['atol']}, rtol "
             f"{TOL[dname]['rtol']})")
     log(f"[kernel] {n} shape/mode/dtype/alignment cases within tolerance")
 
-    # NaN/Inf: the guard quarantines, its absence propagates
+    # NaN/Inf: the guard quarantines, its absence propagates; R = 4 loads
+    # its rows directly, R = 64 streams them through the ring
     for dname, dtype in dtypes.items():
-        for M in (77, 8193, MAIN_M):
-            g, d, _, _ = kernel_inputs(torch, 4, M, dtype, gen)
-            d[1] = torch.nan
-            d[2, 0] = torch.inf
-            d[3, -1] = -torch.inf
-            w = torch.tensor([0.25, 0.0, 0.25, 0.0], device="cuda")
-            out = ops.fl_aggregate_guarded(g, d, w)
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError("guard let a non-finite value through")
-            torch.testing.assert_close(
-                out.float(), ref.fl_aggregate_guarded_ref(g, d, w).float(),
-                **TOL[dname])
-            mask = torch.tensor([1.0, 0.0, 0.0, 0.0], device="cuda")
-            plain = ops.fl_aggregate(g, d, mask)
-            if not bool(torch.isnan(plain).all()):
-                raise AssertionError("guard off: NaN row with mask 0 did not "
-                                     "propagate")
-    log("[kernel] NaN/Inf: guard on -> finite and equal to the plain version; "
-        "guard off -> NaN propagates through a zero mask (fp32, bf16)")
+        for R in (4, 64):
+            for M in (77, 8193, MAIN_M):
+                g, d, _, _ = kernel_inputs(torch, R, M, dtype, gen)
+                d[1] = torch.nan
+                d[2, 0] = torch.inf
+                d[3, -1] = -torch.inf
+                w = torch.zeros(R, device="cuda")
+                w[0::2] = 1.0 / R
+                out = ops.fl_aggregate_guarded(g, d, w)
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError("guard let a non-finite value "
+                                         "through")
+                torch.testing.assert_close(
+                    out.float(), ref.fl_aggregate_guarded_ref(g, d, w).float(),
+                    **TOL[dname])
+                mask = torch.zeros(R, device="cuda")
+                mask[0] = 1.0
+                plain = ops.fl_aggregate(g, d, mask)
+                if not bool(torch.isnan(plain).all()):
+                    raise AssertionError("guard off: NaN row with mask 0 did "
+                                         "not propagate")
+    log("[kernel] NaN/Inf at R 4 and 64: guard on -> finite and equal to the "
+        "plain version; guard off -> NaN propagates through a zero mask "
+        "(fp32, bf16)")
+
+    # determinism: two launches on the same inputs give the same bits
+    cases = [("plain", "float32", K, MAIN_M, 0),
+             ("plain", "float32", 1000, MAIN_M, 0),
+             ("guarded", "float32", 64, MAIN_M, 0),
+             ("subset", "bfloat16", 65, 199_210, 1),
+             ("plain", "bfloat16", 7, 600_001, 1)]
+    for mode, dname, R, M, offset in cases:
+        g, d, mask, w = kernel_inputs(torch, R, M, dtypes[dname], gen, offset)
+        first = run_mode(ops, ref, mode, g, d, mask, w, True)
+        second = run_mode(ops, ref, mode, g, d, mask, w, True)
+        if not torch.equal(first, second):
+            raise AssertionError(f"two launches differ: {mode} {dname} R={R} "
+                                 f"M={M} offset={offset}")
+    log(f"[kernel] deterministic: two launches bit-equal in {len(cases)} "
+        f"cases (R 7 to 1000, direct and ring, fp32 and bf16, misaligned)")
     return main_err
 
 
-def time_ms(torch, fn, flush, iters=100, warmup=5):
-    """Median per-call time in ms from CUDA events, L2 flushed before each
-    call (the 50 MB L2 would otherwise hold the operands)."""
+def time_ms(torch, fn, flush, iters=100, warmup=5, l2="dirty"):
+    """Median per-call time in ms from CUDA events.  ``l2`` says what the
+    50 MB L2 holds when a call starts: "dirty" (``flush.zero_()`` before
+    each call: another buffer's written lines, which the call pays to write
+    back; phases 4 and 6 and PR 14's K1 times), "clean" (``flush.sum()``:
+    another buffer's clean lines, so the call pays for its own bytes only)
+    or "warm" (no flush: the operands stay where the previous call left
+    them, as the main path's pseudo-gradients do; the card sleeps first so
+    that the host has queued every call before the first one runs)."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    if l2 == "warm":
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
     for s, e in zip(starts, ends):
-        flush.zero_()
+        if l2 == "dirty":
+            flush.zero_()
+        elif l2 == "clean":
+            flush.sum()
         s.record()
         fn()
         e.record()
@@ -256,37 +305,127 @@ def time_ms(torch, fn, flush, iters=100, warmup=5):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+L2_MODES = ("dirty", "clean", "warm")
+
+
 def time_kernel(torch, bandwidth):
+    from repro_torch.kernels import fl_aggregate as k1
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(256 * 2**20 // 4, device="cuda")   # 256 MB > L2
+    tiny = torch.empty(1, device="cuda")
+    floor = {l2: time_ms(torch, tiny.zero_, flush, l2=l2) for l2 in L2_MODES}
+    log("[kernel-time] floor: a 4-byte zero_() between its events takes "
+        + ", ".join(f"{floor[l2]:.4f} ms ({l2})" for l2 in L2_MODES))
     rows = {}
-    for R in (K, 100):
-        for M in (MAIN_M, 199_210):
-            g, d, mask, _ = kernel_inputs(torch, R, M, torch.float32, gen)
-            lib = torch.addmv(g, d.T, mask, alpha=1.0 / R)
-            torch.testing.assert_close(lib, ref.fl_aggregate_ref(g, d, mask),
-                                       **TOL["float32"])
-            t_kernel = time_ms(torch, lambda: ops.fl_aggregate(g, d, mask),
-                               flush)
-            t_plain = time_ms(torch, lambda: ref.fl_aggregate_ref(g, d, mask),
-                              flush)
-            t_lib = time_ms(torch, lambda: torch.addmv(g, d.T, mask,
-                                                       alpha=1.0 / R), flush)
-            nbytes = (R * M + 2 * M) * 4 + R * 4
-            t_bytes = nbytes / bandwidth * 1e3
-            t_ops = 2 * R * M / FP32_PEAK * 1e3
-            bound = max(t_bytes, t_ops)
-            rows[(R, M)] = dict(ms=t_kernel, plain_ms=t_plain,
-                                library_ms=t_lib, bound_ms=bound,
-                                bound_by="bytes" if t_bytes >= t_ops
-                                else "operations")
-            log(f"[kernel-time] R={R} M={M} fp32: kernel {t_kernel:.4f} ms, "
-                f"plain {t_plain:.4f} ms, torch.addmv {t_lib:.4f} ms, bound "
-                f"{bound:.4f} ms ({nbytes / 1e6:.2f} MB moved), kernel at "
-                f"{nbytes / t_kernel / 1e9:.2f} TB/s = "
-                f"{100 * bound / t_kernel:.1f}% of the bound")
+    for R, M, dname in ((K, MAIN_M, "float32"), (64, MAIN_M, "float32"),
+                        (100, MAIN_M, "float32"), (1000, MAIN_M, "float32"),
+                        (K, 199_210, "float32"), (100, 199_210, "float32"),
+                        (100, MAIN_M, "bfloat16")):
+        dtype = getattr(torch, dname)
+        g, d, mask, _ = kernel_inputs(torch, R, M, dtype, gen)
+        lmask = mask.to(dtype)
+        lib = torch.addmv(g, d.T, lmask, alpha=1.0 / R)
+        torch.testing.assert_close(lib.float(),
+                                   ref.fl_aggregate_ref(g, d, mask).float(),
+                                   **TOL[dname])
+        iters = 30 if R == 1000 else 100
+        t_kernel, t_lib = {}, {}
+        for l2 in L2_MODES:
+            t_kernel[l2] = time_ms(torch, lambda: ops.fl_aggregate(g, d, mask),
+                                   flush, iters, l2=l2)
+            t_lib[l2] = time_ms(torch, lambda: torch.addmv(
+                g, d.T, lmask, alpha=1.0 / R), flush, iters, l2=l2)
+        t_plain = time_ms(torch, lambda: ref.fl_aggregate_ref(g, d, mask),
+                          flush, iters)
+        elem = g.element_size()
+        nbytes = (R * M + 2 * M) * elem + R * 4
+        t_bytes = nbytes / bandwidth * 1e3
+        t_ops = 2 * R * M / FP32_PEAK * 1e3
+        bound = max(t_bytes, t_ops)
+        rows[(R, M, dname)] = dict(
+            ms=t_kernel["dirty"], plain_ms=t_plain,
+            library_ms=t_lib["dirty"], bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        plan = k1.launch_plan(
+            R, M, elem, torch.cuda.get_device_properties(0).multi_processor_count)
+        path = (f"direct {plan.direct} rows" if plan.direct == R else
+                f"ring {plan.stages} x {plan.rows} rows")
+        log(f"[kernel-time] R={R} M={M} {dname} ({path}, bound {bound:.4f} ms "
+            f"= {nbytes / 1e6:.2f} MB): kernel "
+            + ", ".join(f"{t_kernel[l2]:.4f}" for l2 in L2_MODES)
+            + " ms; torch.addmv "
+            + ", ".join(f"{t_lib[l2]:.4f}" for l2 in L2_MODES)
+            + f" ms (L2 {'/'.join(L2_MODES)}); plain {t_plain:.4f} ms; "
+            f"kernel at {100 * bound / t_kernel['dirty']:.1f}% / "
+            f"{100 * bound / t_kernel['clean']:.1f}% of the bound (dirty / "
+            f"clean), {t_kernel['clean'] / t_lib['clean']:.2f}x addmv's "
+            f"time (clean)")
+        if (R, M, dname) in ((K, MAIN_M, "float32"), (100, MAIN_M, "float32"),
+                             (1000, MAIN_M, "float32")):
+            plan_steps(torch, k1, plan, g, d, mask, flush)
+        del g, d, lmask, lib
+    host_time_kernel(torch, gen)
     return rows
+
+
+def plan_steps(torch, k1, plan, g, d, mask, flush):
+    """K1 under the launch plans its design rejected, beside the plan it
+    takes (L2 clean): the ring at R = 10, and at R = 100 and 1000 the first
+    rows loaded directly, a deeper ring and shallower stages."""
+    import dataclasses as dc
+    R, M = d.shape
+    w = mask.float().contiguous()
+    elem = g.element_size()
+
+    def launch(p):
+        out = torch.empty_like(g)
+        rc = k1.library().lib.fl_aggregate_launch(
+            g.data_ptr(), d.data_ptr(), w.data_ptr(), out.data_ptr(), R, M,
+            1.0 / R, 0 if elem == 4 else 1, 0, p.tile, p.tiles, p.grid,
+            p.direct, p.rows, p.stages, p.slot_bytes,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fl_aggregate launch failed: CUDA error {rc}")
+        return out
+
+    want = launch(plan)
+    if R <= k1.DIRECT_MAX:
+        steps = [("the ring", dc.replace(plan, direct=0, rows=R, stages=2))]
+    else:
+        deep = max(1, (k1.MAX_SMEM - k1.RING_OFFSET)
+                   // (plan.rows * plan.slot_bytes))
+        steps = [(f"{k1.DIRECT_MAX} rows direct",
+                  dc.replace(plan, direct=k1.DIRECT_MAX)),
+                 (f"{deep} stages", dc.replace(plan, stages=deep)),
+                 ("4-row stages", dc.replace(
+                     plan, rows=4, stages=k1.RING_BYTES // (4 * plan.slot_bytes)))]
+    parts = [f"taken {time_ms(torch, lambda: launch(plan), flush, 30, l2='clean'):.4f}"]
+    for name, p in steps:
+        if not torch.equal(launch(p), want):
+            raise AssertionError(f"plan '{name}' changed the bits")
+        parts.append(f"{name} {time_ms(torch, lambda: launch(p), flush, 30, l2='clean'):.4f}")
+    log(f"[kernel-plan] R={R} M={M}: " + ", ".join(parts)
+        + " ms (L2 clean; every plan gives the same bits)")
+
+
+def host_time_kernel(torch, gen, calls=200):
+    """The wrapper's host time per call at the main path's shape, median
+    of ``calls`` calls on the host clock, each into an idle stream."""
+    from repro_torch.kernels import ops
+    g, d, mask, _ = kernel_inputs(torch, K, MAIN_M, torch.float32, gen)
+    for _ in range(5):
+        ops.fl_aggregate(g, d, mask)
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.fl_aggregate(g, d, mask)
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    log(f"[kernel-host] R={K} M={MAIN_M} fp32: wrapper host time "
+        f"{statistics.median(times) * 1e6:.1f} us a call (median of {calls}; "
+        f"the plan is cached, the shared-memory attribute set once)")
 
 
 # ---------------------------------------------------------------------------
@@ -1244,7 +1383,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/fl_aggregate.py:43",
         "launches": launches,
         "max_abs_err": max_err,
-        **timing[(K, MAIN_M)],
+        **timing[(K, MAIN_M, "float32")],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1263,7 +1402,7 @@ def main() -> int:
         **scan_timing[MAIN_SCAN],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; K1 timings "
-        f"at R={K}, M={MAIN_M} fp32, K2 at B4 S1024 H32 KV8 hd64 bf16, K3 at "
+        f"at R={K}, M={MAIN_M} fp32 (L2 dirty), K2 at B4 S1024 H32 KV8 hd64 bf16, K3 at "
         f"B4 S1024 d16384 N16 (bf16 x), on {smi}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -47,18 +47,26 @@ def call(mode, g, d, mask, plain=False):
             else ops.fl_aggregate_guarded)(g, d, mask / R)
 
 
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R", [1, 10, 100])
-@pytest.mark.parametrize("M", [77, 8192, 8193, 159_012, 199_210])
-@pytest.mark.parametrize("offset", [0, 1])
-def test_kernel_matches_plain_version(card, mode, dtype, R, M, offset):
-    """offset=1 makes every operand a misaligned view (scalar path)."""
+def inputs(card, R, M, dtype, offset):
     gen = torch.Generator(device=card).manual_seed(R * M)
     g = torch.randn(M + offset, generator=gen, device=card).to(dtype)[offset:]
     d = torch.randn(R * M + offset, generator=gen, device=card).to(dtype)[
         offset:].view(R, M)
     mask = (torch.rand(R, generator=gen, device=card) < 0.5).float()
+    return g, d, mask
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 7, 10, 11, 12, 64, 65, 100, 1000])
+@pytest.mark.parametrize("M", [77, 8192, 8193, 159_012, 199_210, 600_001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_matches_plain_version(card, mode, dtype, R, M, offset):
+    """R up to 11 loads every row directly, from 12 the rows stream through
+    the ring (65 and 1000 end in a partial stage); 199,210 leaves every
+    other row off 16 bytes, 600,001 gives each block three tiles; offset=1
+    makes every operand a misaligned view."""
+    g, d, mask = inputs(card, R, M, dtype, offset)
     before = fl_aggregate_cuda.launches
     got = call(mode, g, d, mask)
     assert fl_aggregate_cuda.launches == before + 1
@@ -69,20 +77,35 @@ def test_kernel_matches_plain_version(card, mode, dtype, R, M, offset):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_guard_on_and_off(card, dtype):
+@pytest.mark.parametrize("R", [4, 64])
+def test_guard_on_and_off(card, dtype, R):
+    """R = 4 loads its rows directly, R = 64 streams them through the
+    ring."""
     g = torch.randn(8193, device=card).to(dtype)
-    d = torch.randn(4, 8193, device=card).to(dtype)
+    d = torch.randn(R, 8193, device=card).to(dtype)
     d[1] = torch.nan
     d[2, 0] = torch.inf
-    w = torch.tensor([0.25, 0.0, 0.25, 0.0], device=card)
+    w = torch.zeros(R, device=card)
+    w[0::2] = 1.0 / R
     out = ops.fl_aggregate_guarded(g, d, w)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(
         out.float(), ref.fl_aggregate_guarded_ref(g, d, w).float(),
         **TOL[dtype])
-    plain = ops.fl_aggregate(g, d, torch.tensor([1.0, 0.0, 0.0, 0.0],
-                                                device=card))
+    mask = torch.zeros(R, device=card)
+    mask[0] = 1.0
+    plain = ops.fl_aggregate(g, d, mask)
     assert torch.isnan(plain).all()     # 0 · NaN = NaN: the row poisons
+
+
+@pytest.mark.parametrize("mode,dtype,R,M,offset", [
+    ("plain", torch.float32, 10, 159_012, 0),
+    ("guarded", torch.float32, 1000, 159_012, 0),
+    ("subset", torch.bfloat16, 65, 199_210, 1)])
+def test_kernel_is_deterministic(card, mode, dtype, R, M, offset):
+    """No atomics and a fixed order: two launches give the same bits."""
+    g, d, mask = inputs(card, R, M, dtype, offset)
+    assert torch.equal(call(mode, g, d, mask), call(mode, g, d, mask))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):

@@ -4,6 +4,11 @@ Pallas kernel itself (interpret mode) on a subset, the NaN/Inf guard and
 the CPU → plain-version dispatch.  The CUDA kernel against its plain version
 is tests/test_torch_cuda.py (no JAX there, so it runs on the card's host).
 
+The CUDA kernel's launch plan (``launch_plan``, a pure function of the
+shape and the SM count) is checked here too: every element of g and of
+every row is read by exactly one block, once, and every SM gets work at the
+main path's shape.
+
 Tolerances are tests/test_kernels.py's: fp32 2e-5, bf16 3e-2.
 """
 import jax.numpy as jnp
@@ -15,7 +20,8 @@ from repro.kernels import ref as jref
 from repro.kernels.fl_aggregate import fl_aggregate as j_pallas
 from repro_torch.fl.state import ParamLayout
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+from repro_torch.kernels import fl_aggregate as k1
+from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda, launch_plan
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
@@ -167,3 +173,71 @@ def test_param_layout_rows_are_16_byte_aligned():
     # 784·200 + 200 + 200·10 + 10 (the JAX docstring says 199,210)
     assert layout.size == 159_010 and layout.width == 159_012
     assert [e[1] for e in layout.entries] == ["b", "w", "b", "w"]
+
+
+def walk(plan, R, M):
+    """The column ranges each of the R + 1 slices (g, then the rows) is
+    read in, block by block, as the kernel walks its tiles and stages."""
+    reads = [[] for _ in range(R + 1)]
+    for block in range(plan.grid):
+        for t in range(block, plan.tiles, plan.grid):
+            m0 = t * plan.tile
+            tw = min(plan.tile, M - m0)
+            assert 0 < tw <= k1.CONSUMERS * k1.MAX_COLS
+            for q in range(1 + plan.direct):          # g and the direct rows
+                reads[q].append((m0, m0 + tw))
+            for r0 in range(plan.direct, R, plan.rows):
+                for r in range(r0, min(r0 + plan.rows, R)):
+                    reads[1 + r].append((m0, m0 + tw))
+    return reads
+
+
+@pytest.mark.parametrize("R", [1, 7, 10, 11, 12, 64, 65, 100, 1000])
+@pytest.mark.parametrize("M", [1, 77, 8193, 159_012, 199_210, 600_001,
+                               1_200_000_000])
+@pytest.mark.parametrize("elem", [4, 2])
+def test_launch_plan_reads_every_element_once(R, M, elem):
+    plan = launch_plan(R, M, elem, 132)
+    vec = 16 // elem
+    assert plan.tile % vec == 0 and plan.tile * elem >= k1.MIN_SLICE
+    assert (plan.tiles - 1) * plan.tile < M <= plan.tiles * plan.tile
+    assert 1 <= plan.grid <= min(plan.tiles, 132)
+    assert plan.direct in (0, R) and plan.direct <= k1.DIRECT_MAX
+    assert 1 <= plan.rows <= k1.ROWS_MAX
+    assert 1 <= plan.stages <= k1.MAX_STAGES
+    assert plan.slot_bytes >= plan.tile * elem + 16 and plan.slot_bytes % 16 == 0
+    assert plan.smem <= k1.MAX_SMEM
+    if plan.direct < R:        # a ring in use holds two stages at least
+        assert plan.stages >= 2
+    if M * R > 10 ** 9:        # the dense walk below is for sizes a test takes
+        return
+    for q, ranges in enumerate(walk(plan, R, M)):
+        ranges.sort()
+        assert ranges[0][0] == 0 and ranges[-1][1] == M, q
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:])), q
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+@pytest.mark.parametrize("R", [10, 64, 1000])
+def test_every_sm_gets_work_at_the_main_shape(sms, R):
+    """M = 159,012 fp32: one tile a block, as wide as 16-byte multiples
+    allow, so no SM streams more than a vector more than its share."""
+    M = 159_012
+    plan = launch_plan(R, M, 4, sms)
+    assert plan.grid == plan.tiles == sms
+    share = -(-M // sms)
+    assert share <= plan.tile < share + 4
+
+
+def test_launch_plan_balances_blocks_that_walk_several_tiles():
+    plan = launch_plan(100, 600_001, 4, 132)
+    per_block = [len(range(b, plan.tiles, plan.grid))
+                 for b in range(plan.grid)]
+    assert plan.grid == 132 and min(per_block) == max(per_block) == 3
+
+
+@pytest.mark.parametrize("args", [(-1, 10, 4, 132), (10, 0, 4, 132),
+                                  (10, 10, 8, 132), (10, 10, 4, 0)])
+def test_launch_plan_refuses_what_the_kernel_does_not_take(args):
+    with pytest.raises(ValueError, match="no plan"):
+        launch_plan(*args)
