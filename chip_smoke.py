@@ -28,6 +28,17 @@ Phases, each reporting on its own lines:
    run must launch K1 exactly once per round; then the same runs on the CPU
    from the same data and initial params: masks equal bit for bit, energy,
    accuracy and loss within rtol 1e-4, atol 1e-5;
+3b. the comparison panel — the paper's schemes on phase 3's data and
+   params: offline Algorithm 1 solved on the card (timed alone, its outer
+   iterations printed) and on the CPU (p and w within rtol 1e-4, atol 1e-5,
+   the objective within rtol 1e-4); k matched to the online scheme's mean
+   participation (phase 3's (P1') solve); then ProposedOffline,
+   GreedyScheme(k) and AgeBasedScheme(k) with no aggregator,
+   CsmaScheme(k) + csmaafl, AgeAwareScheme(k) + age, RandomScheme(mean/K) +
+   fedasync (poly) with a norm clip, and ProposedOnline with quarantine and
+   staleness down-weighting.  Each run launches K1 once a round, in its
+   weighted mode for the last four (the per-mode count says so), and is
+   held against the same run on the CPU as in phase 3;
 4. attention kernel — K2 (``flash_attention``) against its plain version on
    the card: the sweeps of tests/test_kernels.py (MHA, GQA 2:1 and 4:1,
    MQA, hd 64 and 128), windows 1 to 128, ``causal=False``, ragged S (1,
@@ -80,9 +91,9 @@ order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(K1, K2 and K3), each with its launches on its main path (phase 3 for K1,
-the generate run of phase 5a for K2, that of phase 7a for K3) and its times
-at the main path's shape.
+(K1, K2 and K3), each with its launches on its main path (phases 3 and 3b
+for K1, the generate run of phase 5a for K2, that of phase 7a for K3) and
+its times at the main path's shape.
 """
 from __future__ import annotations
 
@@ -103,7 +114,7 @@ TOL = {"float32": dict(atol=2e-5, rtol=2e-5),     # tests/test_kernels.py
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 SLICE_RTOL, SLICE_ATOL = 1e-4, 1e-5               # tests/golden/harness.py
 K, T = 10, 12
-MAIN_M = 159_012   # the MLP's 159,010 params in a 16-byte-aligned row
+MAIN_M = 159_012   # the MLP's 159,010 params + 2 zero columns (ParamLayout)
 
 
 def log(*parts):
@@ -501,6 +512,8 @@ def slice_runs(torch):
     log(f"[slice] (P1') solve of all {T} rounds alone on the card: "
         f"{time.perf_counter() - t0:.2f} s (mean p = "
         f"{float(probs.mean()):.4f})")
+    world = dict(cell=cell, spec=spec, clients=clients, test=test, h=h,
+                 params=params, probs=probs)
 
     def cpu(ds):
         return Dataset(ds.x.cpu(), ds.y.cpu(), ds.num_classes)
@@ -513,20 +526,140 @@ def slice_runs(torch):
                              c_test, policy, h.cpu(), cell, run_cfg,
                              device="cpu")
         wall = time.perf_counter() - t0
-        got = card[name]
-        np.testing.assert_array_equal(got.participation, ref.participation)
-        worst = 0.0
-        for field in ("energy_per_client", "energy_timeline", "test_acc",
-                      "test_loss"):
-            a, b = getattr(got, field), getattr(ref, field)
-            np.testing.assert_allclose(a, b, rtol=SLICE_RTOL,
-                                       atol=SLICE_ATOL, err_msg=field)
-            worst = max(worst, float(np.max(np.abs(a - b)
-                                            / (SLICE_ATOL + SLICE_RTOL
-                                               * np.abs(b)))))
+        worst = held_to_cpu(np, card[name], ref)
         log(f"[slice] {name:20s} cpu: masks equal bit for bit; energy, acc, "
             f"loss within rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst "
             f"{worst:.3f} of the tolerance); cpu wall={wall:.2f} s")
+    world.update(c_clients=c_clients, c_test=c_test, c_params=c_params)
+    return launches, world
+
+
+def held_to_cpu(np, got, ref) -> float:
+    """Masks equal bit for bit, energy, accuracy and loss within the slice
+    tolerance; returns the worst float as a share of its tolerance."""
+    np.testing.assert_array_equal(got.participation, ref.participation)
+    worst = 0.0
+    for field in ("energy_per_client", "energy_timeline", "test_acc",
+                  "test_loss"):
+        a, b = getattr(got, field), getattr(ref, field)
+        np.testing.assert_allclose(a, b, rtol=SLICE_RTOL, atol=SLICE_ATOL,
+                                   err_msg=field)
+        worst = max(worst, float(np.max(np.abs(a - b)
+                                        / (SLICE_ATOL + SLICE_RTOL
+                                           * np.abs(b)))))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3b
+# ---------------------------------------------------------------------------
+
+PANEL_CLIP = 0.05    # the norm clip of the guarded random run
+
+
+def panel_runs(torch, world):
+    """The paper's comparison panel on phase 3's data and params; returns
+    K1's launches in the seven card runs."""
+    import numpy as np
+
+    from repro_torch.core import algorithm1
+    from repro_torch.core.selection import (AgeAwareScheme, AgeBasedScheme,
+                                            CsmaScheme, GreedyScheme,
+                                            ProposedOffline, ProposedOnline,
+                                            RandomScheme)
+    from repro_torch.fl import (AggregatorConfig, GuardConfig, SimConfig,
+                                run_simulation)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    t_phase = time.perf_counter()
+    cell, spec, h = world["cell"], world["spec"], world["h"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    offline = ProposedOffline(spec, h)                           # the card
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    res = offline.result
+    t0 = time.perf_counter()
+    cres = algorithm1.solve(h.cpu(), spec, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for field, got, want in (("p", res.p, cres.p), ("w", res.w, cres.w)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=SLICE_RTOL, atol=SLICE_ATOL,
+                                   err_msg=f"offline {field}")
+    np.testing.assert_allclose(float(res.objective), float(cres.objective),
+                               rtol=SLICE_RTOL, err_msg="offline objective")
+    if not (torch.isfinite(res.p).all() and torch.isfinite(res.w).all()):
+        raise AssertionError("offline Algorithm 1: non-finite p or w")
+    log(f"[panel] offline Algorithm 1 (K={K}, T={T}) alone on the card: "
+        f"{card_s:.2f} s, {int(res.iters)} outer iterations, residual "
+        f"{float(res.residual):.3e}, objective {float(res.objective):.6f}; "
+        f"on the CPU {cpu_s:.2f} s, {int(cres.iters)} iterations, objective "
+        f"{float(cres.objective):.6f}: p, w within rtol {SLICE_RTOL} atol "
+        f"{SLICE_ATOL}")
+
+    # k matched to the online scheme (examples/mnist_fl_schemes.py), from
+    # phase 3's (P1') solve of every round
+    avg = float(world["probs"].sum() / T)
+    k = max(1, round(avg))
+    log(f"[panel] matched participation: avg={avg:.4f} clients/round, k={k}")
+    cfg = SimConfig(rounds=T, local_iters=5, batch_size=10, eval_every=4)
+
+    def with_(**kw):
+        return dataclasses.replace(cfg, **kw)
+
+    runs = [  # (name, policy, config, weighted mode)
+        ("proposed-offline", offline, cfg, False),
+        ("greedy", GreedyScheme(k, K), cfg, False),
+        ("age", AgeBasedScheme(k, K), cfg, False),
+        ("csma+csmaafl", CsmaScheme(k, K),
+         with_(aggregator=AggregatorConfig(kind="csmaafl")), True),
+        ("age-aware+age", AgeAwareScheme(k, K),
+         with_(aggregator=AggregatorConfig(kind="age")), True),
+        ("random+fedasync+clip", RandomScheme(min(avg / K, 1.0), K),
+         with_(aggregator=AggregatorConfig(kind="fedasync",
+                                           staleness_fn="poly"),
+               guards=GuardConfig(clip_norm=PANEL_CLIP)), True),
+        ("proposed+guards", ProposedOnline(spec),
+         with_(guards=GuardConfig(quarantine=True, staleness_power=0.5)),
+         True)]
+    card, launches = {}, 0
+    for name, policy, run_cfg, weighted in runs:
+        fl_aggregate_cuda.launches = 0
+        fl_aggregate_cuda.guarded_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_simulation(world["params"], mlp_loss, mlp_accuracy,
+                             world["clients"], world["test"], policy, h, cell,
+                             run_cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, n_w = fl_aggregate_cuda.launches, fl_aggregate_cuda.guarded_launches
+        if n != T or n_w != (T if weighted else 0):
+            raise AssertionError(f"{name}: K1 launched {n} times, {n_w} in "
+                                 f"its weighted mode, in {T} rounds")
+        launches += n
+        if out.participation.shape != (T, K) or not all(
+                np.isfinite(a).all() for a in (out.test_acc, out.test_loss,
+                                               out.energy_per_client)):
+            raise AssertionError(f"{name}: malformed result")
+        card[name] = out
+        log(f"[panel] {name:20s} card: final_acc={out.test_acc[-1]:.4f} "
+            f"final_loss={out.test_loss[-1]:.4f} "
+            f"energy={out.energy_per_client.sum():.4f} J "
+            f"uploads={int(out.participation.sum())} wall={wall:.2f} s "
+            f"K1 launches={n} (= T), weighted={n_w}")
+    for name, policy, run_cfg, _ in runs:
+        t0 = time.perf_counter()
+        ref = run_simulation(world["c_params"], mlp_loss, mlp_accuracy,
+                             world["c_clients"], world["c_test"], policy,
+                             h.cpu(), cell, run_cfg, device="cpu")
+        wall = time.perf_counter() - t0
+        worst = held_to_cpu(np, card[name], ref)
+        log(f"[panel] {name:20s} cpu: masks equal bit for bit; energy, acc, "
+            f"loss within rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst "
+            f"{worst:.3f} of the tolerance); cpu wall={wall:.2f} s")
+    log(f"[panel] phase 3b in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1357,7 +1490,8 @@ def main() -> int:
         f"TFLOP/s fp32")
     max_err = check_kernel(torch)
     timing = time_kernel(torch, bandwidth)
-    launches = slice_runs(torch)
+    launches, world = slice_runs(torch)
+    launches += panel_runs(torch, world)
     attn_err = check_flash(torch)
     attn_timing = time_flash(torch, bandwidth)
     attn_launches = generate_full_width(torch)

@@ -11,7 +11,12 @@ float32 in both frameworks, so the guard never fires and the Halley step
 below divides by ``denom`` directly, which gives the same bits.  It is not
 "fixed" into a real guard: the two versions stay step for step identical.
 The bandwidth solve calls this some 10⁴ times on tensors of a few hundred
-elements, so its cost is host overhead per operation.  The Halley loop's
+elements, so its cost is host overhead per operation.  So the Halley loop
+stops early once its iterates repeat: every second step it compares w with
+w two steps before, and if no element moved, the map (elementwise, the same
+for every step) can only repeat that cycle of length 1 or 2, and the
+remaining steps, an even number, would end on this w.  The result is the
+one all 12 steps give, bit for bit.  The Halley loop's
 constants are 0-dim float32 CPU tensors made once (an operation with a
 Python scalar costs about twice as much on the host as one with a tensor,
 and a CPU 0-dim tensor combines with a CUDA tensor as a scalar, without a
@@ -62,7 +67,8 @@ def lambertw(x: torch.Tensor) -> torch.Tensor:
     w = _initial_guess(x)
     ew, f, wp1, denom, t = (torch.empty_like(w) for _ in range(5))
     at_branch = torch.empty_like(w, dtype=torch.bool)
-    for _ in range(12):
+    before = None     # w two steps back, kept after every second step
+    for step in range(1, 13):
         torch.exp(w, out=ew)
         torch.mul(w, ew, out=f).sub_(x)                    # f = w·e^w − x
         torch.add(w, _ONE, out=wp1)
@@ -73,6 +79,10 @@ def lambertw(x: torch.Tensor) -> torch.Tensor:
         # guard the branch point where wp1 -> 0
         torch.lt(wp1.abs_(), _BRANCH_EPS, out=at_branch)
         w.sub_(t.masked_fill_(at_branch, 0.0))
+        if step % 2 == 0 and step < 12:
+            if before is not None and torch.equal(w, before):
+                break     # a cycle of length 1 or 2: step 12 would be w
+            before = w.clone()
     w = torch.where(x < -INV_E, torch.nan, w)
     # exact at the branch point
     return torch.where((x + INV_E).abs() <= 1e-12, -1.0, w)

@@ -1,13 +1,27 @@
-"""FL runtime: the eager simulation engine on the device data store."""
+"""FL runtime: the eager simulation engine on the device data store, and the
+aggregators (eq. 3, guarded, participant-subset and scheme-weighted)."""
 from .engine import (SimConfig, SimResult, apply_round_decision,
                      check_ported, grant_forced_bandwidth, make_local_train,
                      make_runner)
+from .faults import GuardConfig
 from .simulator import run_simulation
-from .state import (FLState, ParamLayout, broadcast_to_participants,
-                    init_fl_state, masked_aggregate, pseudo_gradients)
+from .state import (AggParams, AggregatorConfig, FLState, ParamLayout,
+                    broadcast_to_participants, finite_rows, guard_weights,
+                    guarded_aggregate, guarded_subset_aggregate,
+                    init_fl_state, masked_aggregate, pseudo_gradients,
+                    scheme_aggregate, scheme_subset_aggregate, scheme_weights,
+                    staleness_scale, subset_aggregate, update_norms,
+                    weighted_aggregate)
 
 __all__ = ["SimConfig", "SimResult", "apply_round_decision", "check_ported",
            "grant_forced_bandwidth", "make_local_train", "make_runner",
            "run_simulation", "FLState", "ParamLayout",
            "broadcast_to_participants", "init_fl_state", "masked_aggregate",
-           "pseudo_gradients"]
+           "pseudo_gradients", "subset_aggregate",
+           # robustness layer: the server-side guards
+           "GuardConfig", "finite_rows", "update_norms", "guard_weights",
+           "guarded_aggregate", "guarded_subset_aggregate",
+           # the scheme aggregators
+           "AggParams", "AggregatorConfig", "scheme_aggregate",
+           "scheme_subset_aggregate", "scheme_weights", "staleness_scale",
+           "weighted_aggregate"]

@@ -15,12 +15,18 @@ package's ``lax.scan`` and host-loop engines collapse into this one loop.
 * **policies** — a ``state_free`` policy is solved once for all rounds (the
   JAX engine's hoisted ``vmap``); any other policy runs each round.
 * **evals** — at ``t % eval_every == 0 or t == rounds - 1``.
+* **aggregation** — as JAX's ``round_step``: ``aggregator`` set →
+  ``scheme_aggregate`` (guards fold in), else active ``guards`` →
+  ``guarded_aggregate``, both one K1 launch a round in its weighted mode;
+  otherwise ``masked_aggregate``, K1's plain mode.  The scheme weights read
+  the staleness ledger before the broadcast and the policy's nominal
+  probabilities, from before the aging boost.
 
 Ported: ``data_path`` ``"device"`` (and ``"auto"``, which resolves to it),
 ``data_stream="round"``, ``participation`` ``"dense"`` (and ``"auto"``,
-which resolves to dense here), both ``local_mode`` values, ``max_staleness``
-and ``aging_boost``.  Every other ``SimConfig`` setting raises
-``NotImplementedError`` naming the field.
+which resolves to dense here), both ``local_mode`` values, ``max_staleness``,
+``aging_boost``, ``guards`` and ``aggregator``.  Every other ``SimConfig``
+setting raises ``NotImplementedError`` naming the field.
 """
 from __future__ import annotations
 
@@ -37,8 +43,9 @@ from ..core.selection import as_policy_fn
 from ..data.device import data_stream_key, from_client_datasets, sample_round
 from ..data.synthetic import Dataset
 from ..optim import Optimizer, sgd
-from .state import (FLState, broadcast_to_participants, init_fl_state,
-                    masked_aggregate, pseudo_gradients)
+from .state import (FLState, broadcast_to_participants, guarded_aggregate,
+                    init_fl_state, masked_aggregate, pseudo_gradients,
+                    scheme_aggregate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +69,8 @@ class SimConfig:
     participant_bucket: int | None = None
     data_stream: str = "round"
     faults: Any = None
-    guards: Any = None
-    aggregator: Any = None
+    guards: Any = None        # a repro_torch.fl.faults.GuardConfig
+    aggregator: Any = None    # a repro_torch.fl.state.AggregatorConfig
     eval_mode: str = "inscan"
     checkpoint_every: int | None = None
     overflow: str = "spill"
@@ -77,8 +84,6 @@ _PORTED = {
     "participation": ("dense", "auto"),
     "eval_mode": ("inscan",),
     "faults": (None,),
-    "guards": (None,),
-    "aggregator": (None,),
     "metrics": (None,),
     "checkpoint_every": (None,),
     "participant_bucket": (None,),
@@ -195,6 +200,10 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
     T = cfg.rounds
     policy_fn = as_policy_fn(policy)
     hoist = getattr(policy_fn, "state_free", False)
+    guards = cfg.guards if cfg.guards is not None and cfg.guards.active \
+        else None
+    ap = cfg.aggregator.params(device) if cfg.aggregator is not None \
+        else None
     opt = opt or sgd(cfg.lr)
     local_train = make_local_train(loss_fn, opt)
     store = from_client_datasets(client_data, device=device)
@@ -208,8 +217,9 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
         h_rounds = torch.as_tensor(h_all, dtype=torch.float32).to(device).T
         state = init_fl_state(params, K, device=device)
         layout = state.layout
-        if hoist:   # every round's (P1') solve at once
-            probs_all, w_all = policy_fn(torch.arange(T), h_rounds, None)
+        if hoist:   # every round's policy (the (P1') solves) at once
+            probs_all, w_all = policy_fn(torch.arange(T, device=device),
+                                         h_rounds, None)
         energy = torch.zeros(K, dtype=torch.float32, device=device)
         masks, e_rounds, accs, losses, eval_rounds = [], [], [], [], []
         for t in range(T):
@@ -228,8 +238,19 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
                 client = torch.where(mask.bool()[:, None], client,
                                      state.client_params)
             state = state._replace(client_params=client)
-            new_global = masked_aggregate(state.global_params,
-                                          pseudo_gradients(state), mask, K)
+            deltas = pseudo_gradients(state)
+            if ap is not None or guards is not None:
+                staleness = state.round - state.last_tx
+            if ap is not None:   # probs: nominal, before the aging boost
+                new_global = scheme_aggregate(
+                    state.global_params, deltas, mask, K, staleness, probs,
+                    ap, guards=guards)
+            elif guards is not None:
+                new_global = guarded_aggregate(state.global_params, deltas,
+                                               mask, K, staleness, guards)
+            else:
+                new_global = masked_aggregate(state.global_params, deltas,
+                                              mask, K)
             state = broadcast_to_participants(state, new_global, mask)
             if t % cfg.eval_every == 0 or t == T - 1:
                 g = layout.unflatten(state.global_params)

@@ -9,7 +9,8 @@ take; it never falls back to the plain version.  :func:`launch_plan` is the
 kernel's tiling of M over the card's SMs, a pure function of the shape.
 The library is built and loaded on the first call, never at import, so the
 module imports on a host without CUDA.  ``fl_aggregate_cuda.launches``
-counts the launches.
+counts the launches, and ``fl_aggregate_cuda.guarded_launches`` those of
+them in the weighted (guarded) mode, ``guard=True``.
 """
 from __future__ import annotations
 
@@ -155,7 +156,9 @@ def fl_aggregate_cuda(global_p: torch.Tensor, deltas: torch.Tensor,
         raise RuntimeError(f"fl_aggregate kernel launch failed: CUDA error "
                            f"{rc}")
     fl_aggregate_cuda.launches += 1
+    fl_aggregate_cuda.guarded_launches += bool(guard)
     return out
 
 
 fl_aggregate_cuda.launches = 0
+fl_aggregate_cuda.guarded_launches = 0

@@ -9,6 +9,8 @@ W near its branch point); the iterative solves to rtol 1e-4 on p and w with
 which can move a convergence check by one iteration.  The batched port
 solve equals its per-lane solve bit for bit.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -96,6 +98,41 @@ def test_lambertw_matches():
     np.testing.assert_allclose(lambertw(t32(x)).numpy(),
                                np.asarray(j_lambertw(jnp.asarray(x))),
                                rtol=1e-5, atol=1e-7)
+
+
+def twelve_halley_steps(x):
+    """The Halley loop without its early stop: all 12 steps, always."""
+    lw = importlib.import_module("repro_torch.core.lambertw")
+    x = torch.as_tensor(x, dtype=torch.float32)
+    x = torch.where((x < -lw.INV_E) & (x >= -lw.INV_E - lw.BRANCH_TOL),
+                    -lw.INV_E, x)
+    w = lw._initial_guess(x)
+    for _ in range(12):
+        ew = torch.exp(w)
+        f = w * ew - x
+        wp1 = w + 1.0
+        t = (w + 2.0) * f / (wp1 + wp1)
+        t = f / (ew * wp1 - t)
+        w = w - torch.where(wp1.abs() < 1e-12, 0.0, t)
+    w = torch.where(x < -lw.INV_E, torch.nan, w)
+    return torch.where((x + lw.INV_E).abs() <= 1e-12, -1.0, w)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lambertw_early_stop_gives_the_twelve_step_bits(seed):
+    """The loop stops once w repeats two steps back; the result equals all
+    12 steps bit for bit: the (P4) arguments −e^{−A}, the branch point and
+    below it, the mid range, large x, and lanes that never settle (NaN)."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([
+        -np.exp(-(1.0 + rng.exponential(3.0, 4000))),
+        -1 / np.e + rng.uniform(-2e-6, 1e-5, 200), [-0.3679, np.nan],
+        rng.uniform(-0.36, 3.0, 500), rng.lognormal(3.0, 3.0, 300),
+    ]).astype(np.float32)
+    for lanes in (t32(x), t32(x[:7]), t32(x[4000:4200]).view(20, 10)):
+        got, want = lambertw(lanes), twelve_halley_steps(lanes)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
 @pytest.mark.parametrize("x,expect", [

@@ -16,7 +16,9 @@ from repro_torch.core import CellConfig
 from repro_torch.core.channel import channel_gains, sample_positions
 from repro_torch.core.selection import RandomScheme
 from repro_torch.data import Dataset, make_mnist_like, shard_noniid
-from repro_torch.fl import SimConfig, run_simulation
+from repro_torch.fl import (AggregatorConfig, GuardConfig, SimConfig,
+                            guarded_aggregate, run_simulation,
+                            scheme_aggregate)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
 from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
@@ -146,3 +148,37 @@ def test_simulation_on_the_card_matches_the_cpu(card):
     for name in ("energy_per_client", "test_acc", "test_loss"):
         np.testing.assert_allclose(getattr(got, name), getattr(want, name),
                                    rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("fn", ["scheme", "guarded"])
+@pytest.mark.parametrize("R,M", [(10, 159_012), (64, 8193)])
+def test_weighted_aggregators_launch_k1_once(card, fn, R, M):
+    """``scheme_aggregate`` and ``guarded_aggregate`` (active guards) are one
+    K1 launch in its weighted mode each, and equal their CPU results; a
+    NaN row is quarantined on both devices."""
+    gen = torch.Generator().manual_seed(R)
+    g = torch.randn(M, generator=gen)
+    d = torch.randn(R, M, generator=gen) * 1e-2
+    d[1, 5] = torch.nan
+    mask = (torch.rand(R, generator=gen) < 0.7).float()
+    mask[1] = 1.0
+    stale = torch.randint(0, 6, (R,), generator=gen, dtype=torch.int32)
+    probs = torch.rand(R, generator=gen)
+    guards = GuardConfig(clip_norm=0.5, staleness_power=0.5)
+
+    def run(dev):
+        args = [x.to(dev) for x in (g, d, mask)]
+        if fn == "scheme":
+            return scheme_aggregate(*args, R, stale.to(dev), probs.to(dev),
+                                    AggregatorConfig(kind="csmaafl"),
+                                    guards=guards)
+        return guarded_aggregate(*args, R, stale.to(dev), guards)
+
+    before = (fl_aggregate_cuda.launches, fl_aggregate_cuda.guarded_launches)
+    got = run(card)
+    assert (fl_aggregate_cuda.launches,
+            fl_aggregate_cuda.guarded_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = run("cpu")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)

@@ -4,7 +4,9 @@ JAX-built datasets, channel gains and initial params.
 
 Participation masks must match bit for bit (threefry draws are exact);
 energy, accuracy and loss to the golden tolerance rtol=1e-4, atol=1e-5
-(tests/golden/harness.py).
+(tests/golden/harness.py).  The cases cover the paper's comparison panel:
+the online and offline proposed schemes, random, greedy, age-based, csma
+and age-aware selection, the scheme aggregators and the guards.
 """
 import dataclasses
 
@@ -17,10 +19,13 @@ from repro.core import CellConfig as JCell
 from repro.core import ProblemSpec as JSpec
 from repro.core.channel import channel_gains as j_channel_gains
 from repro.core.channel import sample_positions as j_sample_positions
+import repro.core.selection as jsel
 from repro.core.selection import ProposedOnline as JProposed
 from repro.core.selection import RandomScheme as JRandom
 from repro.data import make_mnist_like as j_make_mnist_like
 from repro.data import shard_noniid as j_shard_noniid
+from repro.fl import AggregatorConfig as JAgg
+from repro.fl import GuardConfig as JGuard
 from repro.fl import SimConfig as JSimConfig
 from repro.fl import grant_forced_bandwidth as j_grant
 from repro.fl import run_simulation as j_run_simulation
@@ -29,9 +34,11 @@ from repro.models.small import mlp_accuracy as j_mlp_accuracy
 from repro.models.small import mlp_loss as j_mlp_loss
 from repro_torch.convert import params_from_jax, params_to_numpy
 from repro_torch.core import CellConfig, ProblemSpec
+import repro_torch.core.selection as tsel
 from repro_torch.core.selection import ProposedOnline, RandomScheme
 from repro_torch.data import Dataset
-from repro_torch.fl import (SimConfig, grant_forced_bandwidth, make_runner,
+from repro_torch.fl import (AggregatorConfig, GuardConfig, SimConfig,
+                            grant_forced_bandwidth, make_runner,
                             run_simulation)
 from repro_torch.models.small import mlp_accuracy, mlp_loss
 
@@ -60,15 +67,43 @@ def world():
                     jax.tree_util.tree_map(np.asarray, params), device="cpu"))
 
 
-def policies(name):
+def policies(name, world=None):
+    """The JAX policy and the port's, by name."""
     if name == "proposed":
         return (JProposed(JSpec(cell=JCell(num_clients=K), rho=0.05, lam=0.01,
                                 num_rounds=T)),
                 ProposedOnline(ProblemSpec(cell=CellConfig(num_clients=K),
                                            rho=0.05, lam=0.01,
                                            num_rounds=T)))
+    if name == "offline":
+        return (jsel.ProposedOffline(JSpec(cell=JCell(num_clients=K),
+                                           num_rounds=T), world["h"]),
+                tsel.ProposedOffline(ProblemSpec(cell=CellConfig(
+                    num_clients=K), num_rounds=T), world["t_h"],
+                    device="cpu"))
+    if name == "csma":
+        return jsel.csma_policy(3, K), tsel.csma_policy(3, K)
+    if name == "age-aware":
+        return jsel.age_aware_policy(2, K), tsel.age_aware_policy(2, K)
+    if name == "greedy":
+        return jsel.GreedyScheme(3, K), tsel.GreedyScheme(3, K)
+    if name == "age":
+        return jsel.AgeBasedScheme(3, K), tsel.AgeBasedScheme(3, K)
     return JRandom(p_bar=0.1, num_clients=K), RandomScheme(p_bar=0.1,
                                                            num_clients=K)
+
+
+def configs(extra):
+    """JAX's and the port's SimConfig: ``guards`` and ``aggregator`` are
+    given as keyword dicts and built in each package."""
+    extra = dict(extra)
+    g, a = extra.pop("guards", None), extra.pop("aggregator", None)
+    kw = dict(rounds=T, local_iters=5, batch_size=10, eval_every=2,
+              data_path="device", **extra)
+    return (JSimConfig(guards=g and JGuard(**g), aggregator=a and JAgg(**a),
+                       **kw),
+            SimConfig(guards=g and GuardConfig(**g),
+                      aggregator=a and AggregatorConfig(**a), **kw))
 
 
 CASES = {
@@ -78,22 +113,36 @@ CASES = {
     "random-participants-staleness3-aging": (
         "random", dict(local_mode="participants", max_staleness=3,
                        aging_boost=True)),
+    "csma-csmaafl": ("csma", dict(aggregator=dict(kind="csmaafl"))),
+    "age-aware-age": ("age-aware", dict(aggregator=dict(kind="age"))),
+    "greedy-fedasync-poly-clip": (
+        "greedy", dict(aggregator=dict(kind="fedasync", staleness_fn="poly"),
+                       guards=dict(clip_norm=0.05))),
+    "age-staleness-guards": (
+        "age", dict(guards=dict(staleness_power=0.5, staleness_cap=3))),
+    "offline": ("offline", {}),
+    "random-csmaafl-aging": (
+        "random", dict(max_staleness=2, aging_boost=True,
+                       aggregator=dict(kind="csmaafl"))),
 }
+
+
+def run_both(world, policy, extra):
+    jpol, tpol = policies(policy, world)
+    jcfg, tcfg = configs(extra)
+    want = j_run_simulation(world["params"], j_mlp_loss, j_mlp_accuracy,
+                            world["clients"], world["test"], jpol, world["h"],
+                            JCell(num_clients=K), jcfg)
+    got = run_simulation(world["t_params"], mlp_loss, mlp_accuracy,
+                         world["t_clients"], world["t_test"], tpol,
+                         world["t_h"], CellConfig(num_clients=K), tcfg,
+                         device="cpu")
+    return got, want
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_simulation_matches_jax(world, case):
-    pol, extra = CASES[case]
-    jpol, tpol = policies(pol)
-    kw = dict(rounds=T, local_iters=5, batch_size=10, eval_every=2,
-              data_path="device", **extra)
-    want = j_run_simulation(world["params"], j_mlp_loss, j_mlp_accuracy,
-                            world["clients"], world["test"], jpol, world["h"],
-                            JCell(num_clients=K), JSimConfig(**kw))
-    got = run_simulation(world["t_params"], mlp_loss, mlp_accuracy,
-                         world["t_clients"], world["t_test"], tpol,
-                         world["t_h"], CellConfig(num_clients=K),
-                         SimConfig(**kw), device="cpu")
+    got, want = run_both(world, *CASES[case])
     np.testing.assert_array_equal(got.participation, want.participation)
     np.testing.assert_array_equal(got.eval_rounds, want.eval_rounds)
     for name in ("energy_per_client", "energy_timeline", "test_acc",
@@ -144,8 +193,38 @@ def test_grant_forced_bandwidth_matches_jax(case):
     assert (got[forced] > 0).all()
 
 
+def test_paper_kind_matches_plain_average(world):
+    """JAX's test of the same name: ``AggregatorConfig("paper")`` through
+    K1's weighted mode equals ``aggregator=None`` (its plain mode)."""
+    runs = {}
+    for agg in (None, AggregatorConfig(kind="paper")):
+        cfg = SimConfig(rounds=T, local_iters=2, eval_every=2,
+                        aggregator=agg)
+        runs[agg] = run_simulation(world["t_params"], mlp_loss, mlp_accuracy,
+                                   world["t_clients"], world["t_test"],
+                                   policies("random")[1], world["t_h"],
+                                   CellConfig(num_clients=K), cfg,
+                                   device="cpu")
+    a, b = runs.values()
+    np.testing.assert_array_equal(a.participation, b.participation)
+    np.testing.assert_allclose(a.state.global_params.numpy(),
+                               b.state.global_params.numpy(), atol=1e-5)
+    np.testing.assert_allclose(a.test_loss, b.test_loss, atol=1e-5)
+
+
 @pytest.mark.parametrize("field,value", [
-    ("faults", object()), ("guards", object()), ("aggregator", object()),
+    ("guards", GuardConfig()), ("guards", GuardConfig(quarantine=False)),
+    ("aggregator", AggregatorConfig(kind="age")),
+])
+def test_guards_and_aggregator_are_ported(world, field, value):
+    cfg = dataclasses.replace(SimConfig(rounds=2), **{field: value})
+    make_runner(mlp_loss, mlp_accuracy, world["t_clients"], world["t_test"],
+                policies("random")[1], CellConfig(num_clients=K), cfg,
+                device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("faults", object()),
     ("metrics", object()), ("participation", "sparse"),
     ("data_path", "stream"), ("data_path", "prestack"),
     ("data_stream", "client"), ("eval_mode", "replay"),

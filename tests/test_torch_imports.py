@@ -33,6 +33,8 @@ def test_the_check_sees_the_whole_port():
     assert {"random.py", "engine.py", "ops.py", "chip_smoke.py",
             "flash_attention.py", "attention.py", "transformer.py",
             "generate.py", "telemetry.py", "llama3_2_1b.py",
-            "selective_scan.py", "mamba.py", "moe.py"} <= names
+            "selective_scan.py", "mamba.py", "moe.py", "fractional.py",
+            "convergence.py", "faults.py", "algorithm1.py",
+            "selection.py"} <= names
     assert forbidden("jax.numpy") and forbidden("repro.fl")
     assert not forbidden("repro_torch.fl")
