@@ -39,6 +39,25 @@ Phases, each reporting on its own lines:
    staleness down-weighting.  Each run launches K1 once a round, in its
    weighted mode for the last four (the per-mode count says so), and is
    held against the same run on the CPU as in phase 3;
+3c. the sparse two-phase engine — (a) phase 3's world with
+   ``local_mode="participants"`` and the per-client stream: RandomScheme
+   (p̄ = 0.1; phase A's full hoist), phase 3's (P1') solve replayed with
+   Δ = 3 (the round-by-round path with forcing) and AgeAwareScheme(1) with
+   the age aggregator and quarantine (a ledger policy; K1's weighted mode),
+   each run sparse and dense on the card and on the CPU: masks, ``last_tx``
+   and eval rounds equal, energy, accuracy, loss and the final model within
+   rtol 1e-4, atol 1e-5, card against CPU and sparse against dense; the
+   sparse runs launch K1 once a round in its subset mode (the first two) or
+   its weighted mode; (b) the population sweep of
+   ``benchmarks/bench_sparse.py`` with the paper's MLP: stores of K = 10³,
+   10⁴, 10⁵ and 10⁶ clients × 8 examples of 784 float32 built on the card
+   from a seeded generator (25.1 GB at 10⁶), RandomScheme(16/K), bucket 64,
+   T = 20 rounds of 5 steps of batch 10; each run twice, the warm one
+   printing wall time, ms a round, the ``sparse.phase_a`` / ``sparse.train``
+   spans, transmitters a round and K1's 20 subset launches at R 64; a dense
+   baseline at K = 10³ held against the sparse run; the participant gather
+   alone at 10⁶; K = 10⁵ held against the same run on the CPU; phase B
+   built once for the whole sweep;
 4. attention kernel — K2 (``flash_attention``) against its plain version on
    the card: the sweeps of tests/test_kernels.py (MHA, GQA 2:1 and 4:1,
    MQA, hd 64 and 128), windows 1 to 128, ``causal=False``, ragged S (1,
@@ -91,9 +110,10 @@ order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(K1, K2 and K3), each with its launches on its main path (phases 3 and 3b
-for K1, the generate run of phase 5a for K2, that of phase 7a for K3) and
-its times at the main path's shape.
+(K1, K2 and K3), each with its launches on its main path (phases 3, 3b and
+3c for K1, also counted by mode: plain, subset and weighted; the generate
+run of phase 5a for K2, that of phase 7a for K3) and its times at the main
+path's shape.
 """
 from __future__ import annotations
 
@@ -507,13 +527,13 @@ def slice_runs(torch):
     # much of a proposed run it takes
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    probs, _ = ProposedOnline(spec).policy_fn(None, h.T, None)
+    probs, w = ProposedOnline(spec).policy_fn(None, h.T, None)
     torch.cuda.synchronize()
     log(f"[slice] (P1') solve of all {T} rounds alone on the card: "
         f"{time.perf_counter() - t0:.2f} s (mean p = "
         f"{float(probs.mean()):.4f})")
     world = dict(cell=cell, spec=spec, clients=clients, test=test, h=h,
-                 params=params, probs=probs)
+                 params=params, probs=probs, w=w)
 
     def cpu(ds):
         return Dataset(ds.x.cpu(), ds.y.cpu(), ds.num_classes)
@@ -559,7 +579,8 @@ PANEL_CLIP = 0.05    # the norm clip of the guarded random run
 
 def panel_runs(torch, world):
     """The paper's comparison panel on phase 3's data and params; returns
-    K1's launches in the seven card runs."""
+    K1's launches in the seven card runs, and those in its weighted
+    mode."""
     import numpy as np
 
     from repro_torch.core import algorithm1
@@ -623,7 +644,7 @@ def panel_runs(torch, world):
         ("proposed+guards", ProposedOnline(spec),
          with_(guards=GuardConfig(quarantine=True, staleness_power=0.5)),
          True)]
-    card, launches = {}, 0
+    card, launches, weighted_launches = {}, 0, 0
     for name, policy, run_cfg, weighted in runs:
         fl_aggregate_cuda.launches = 0
         fl_aggregate_cuda.guarded_launches = 0
@@ -639,6 +660,7 @@ def panel_runs(torch, world):
             raise AssertionError(f"{name}: K1 launched {n} times, {n_w} in "
                                  f"its weighted mode, in {T} rounds")
         launches += n
+        weighted_launches += n_w
         if out.participation.shape != (T, K) or not all(
                 np.isfinite(a).all() for a in (out.test_acc, out.test_loss,
                                                out.energy_per_client)):
@@ -660,7 +682,264 @@ def panel_runs(torch, world):
             f"loss within rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst "
             f"{worst:.3f} of the tolerance); cpu wall={wall:.2f} s")
     log(f"[panel] phase 3b in {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, weighted_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3c
+# ---------------------------------------------------------------------------
+
+SPARSE_KW = dict(local_mode="participants", data_path="device",
+                 data_stream="client")
+# benchmarks/bench_sparse.py's sweep, with the paper's MLP in place of its
+# dim-8 stand-in: p = 16/K, so ~16 transmitters a round at every K
+SWEEP_K = (1_000, 10_000, 100_000, 1_000_000)
+SWEEP_CPU_K = 100_000        # the population also run on the host CPU
+SWEEP_T, SWEEP_BUCKET, SWEEP_PER_CLIENT = 20, 64, 8
+
+
+def held_to(np, got, ref) -> float:
+    """:func:`held_to_cpu`, plus eval rounds and ``last_tx`` equal and the
+    final global model within the slice tolerance."""
+    worst = held_to_cpu(np, got, ref)
+    np.testing.assert_array_equal(got.eval_rounds, ref.eval_rounds)
+    np.testing.assert_array_equal(got.state.last_tx.cpu().numpy(),
+                                  ref.state.last_tx.cpu().numpy())
+    a = got.state.global_params.cpu().numpy()
+    b = ref.state.global_params.cpu().numpy()
+    np.testing.assert_allclose(a, b, rtol=SLICE_RTOL, atol=SLICE_ATOL,
+                               err_msg="global model")
+    return max(worst, float(np.max(np.abs(a - b)
+                                   / (SLICE_ATOL + SLICE_RTOL * np.abs(b)))))
+
+
+def k1_counts(k1):
+    return k1.launches, k1.subset_launches, k1.guarded_launches
+
+
+def zero_k1(k1):
+    k1.launches = k1.subset_launches = k1.guarded_launches = 0
+
+
+def sparse_runs(torch, world):
+    """(a) phase 3's quickstart world on the sparse path, each run sparse
+    and dense on the card and on the CPU; returns K1's launches in the card
+    runs as (plain, subset, weighted)."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.core.selection import (AgeAwareScheme, RandomScheme,
+                                            _schedule_policy)
+    from repro_torch.fl import (AggregatorConfig, GuardConfig, SimConfig,
+                                run_simulation)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    cell, h = world["cell"], world["h"]
+    # phase 3's (P1') solve of every round, replayed: the same (p, w) the
+    # proposed scheme would solve for again
+    proposed = _schedule_policy(types.SimpleNamespace(p=world["probs"].T,
+                                                      w=world["w"].T))
+    cfg = SimConfig(rounds=T, local_iters=5, batch_size=10, eval_every=4,
+                    **SPARSE_KW)
+    runs = [  # name, policy, config, K1's mode on the sparse path
+        ("random", RandomScheme(p_bar=0.1, num_clients=K), cfg, "subset"),
+        ("proposed-staleness3", proposed,
+         dataclasses.replace(cfg, max_staleness=3), "subset"),
+        ("age-aware+age+guards", AgeAwareScheme(1, K),
+         dataclasses.replace(cfg, aggregator=AggregatorConfig(kind="age"),
+                             guards=GuardConfig(quarantine=True)),
+         "weighted")]
+    card, total = {}, np.zeros(3, int)
+    for name, policy, run_cfg, mode in runs:
+        for engine in ("sparse", "dense"):
+            zero_k1(k1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_simulation(
+                world["params"], mlp_loss, mlp_accuracy, world["clients"],
+                world["test"], policy, h, cell,
+                dataclasses.replace(run_cfg, participation=engine))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = k1_counts(k1)
+            sparse = engine == "sparse"
+            if (out.state.client_params is None) != sparse:
+                raise AssertionError(f"{name}: the {engine} engine did not run")
+            want = (T, T if sparse and mode == "subset" else 0,
+                    T if mode == "weighted" else 0)
+            if n != want:
+                raise AssertionError(f"{name} {engine}: K1 launches (all, "
+                                     f"subset, weighted) {n}, not {want}")
+            total += n
+            card[name, engine] = out
+            log(f"[sparse] {name:22s} {engine:6s} card: "
+                f"final_acc={out.test_acc[-1]:.4f} "
+                f"final_loss={out.test_loss[-1]:.4f} "
+                f"energy={out.energy_per_client.sum():.4f} J "
+                f"uploads={int(out.participation.sum())} wall={wall:.2f} s "
+                f"K1 launches={n[0]} (= T), subset={n[1]}, weighted={n[2]}")
+        worst = held_to(np, card[name, "sparse"], card[name, "dense"])
+        log(f"[sparse] {name:22s} sparse = dense on the card: masks, "
+            f"last_tx, eval rounds equal; energy, acc, loss, model within "
+            f"rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst {worst:.3f})")
+    for name, policy, run_cfg, _ in runs:
+        for engine in ("sparse", "dense"):
+            t0 = time.perf_counter()
+            ref = run_simulation(
+                world["c_params"], mlp_loss, mlp_accuracy,
+                world["c_clients"], world["c_test"], policy, h.cpu(), cell,
+                dataclasses.replace(run_cfg, participation=engine),
+                device="cpu")
+            worst = held_to(np, card[name, engine], ref)
+            log(f"[sparse] {name:22s} {engine:6s} cpu: masks, last_tx, eval "
+                f"rounds equal; energy, acc, loss, model within rtol "
+                f"{SLICE_RTOL} atol {SLICE_ATOL} (worst {worst:.3f}); cpu "
+                f"wall={time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def sweep_store(torch, K: int, device):
+    """K clients of 8 examples of 784 float32 from a seeded generator,
+    labels ``i mod 10`` for a client's example i; channel gains uniform in
+    [1e-14, 1e-12)."""
+    from repro_torch.data import DeviceDataStore
+    gen = torch.Generator(device=device).manual_seed(K)
+    n = SWEEP_PER_CLIENT
+    store = DeviceDataStore(
+        torch.randn(K, n, 784, generator=gen, device=device),
+        (torch.arange(n, dtype=torch.int32, device=device) % 10).repeat(K, 1),
+        torch.full((K,), n, dtype=torch.int32, device=device))
+    h = torch.rand(K, SWEEP_T, generator=gen, device=device) \
+        * (1e-12 - 1e-14) + 1e-14
+    return store, h
+
+
+def population_sweep(torch):
+    """(b) the paper's MLP over K = 10³…10⁶ clients on the sparse path, two
+    runs each (the second warm), a dense baseline at K = 10³, and the
+    K = 10⁵ run held against the CPU; returns K1's launches (plain, subset,
+    weighted) in the card runs."""
+    import numpy as np
+
+    from repro_torch import random as jr
+    from repro_torch.core import CellConfig
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.data import (Dataset, DeviceDataStore, data_stream_key,
+                                  gather_participant_rounds, store_bytes)
+    from repro_torch.fl import SimConfig, make_runner, make_sparse_runner
+    from repro_torch.fl.sparse import train_trace_count
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
+    from repro_torch.obs.telemetry import get_telemetry
+
+    t_phase = time.perf_counter()
+    tel = get_telemetry()
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    test = Dataset(torch.randn(2048, 784, generator=gen, device="cuda"),
+                   torch.arange(2048, dtype=torch.int32, device="cuda") % 10,
+                   10)
+    params = init_mlp(jr.PRNGKey(4))
+    cfg = SimConfig(rounds=SWEEP_T, local_iters=5, batch_size=10,
+                    eval_every=5, participant_bucket=SWEEP_BUCKET,
+                    participation="sparse", **SPARSE_KW)
+    builds, total = train_trace_count(), np.zeros(3, int)
+
+    def timed(runner, h, label, expect):
+        nonlocal total
+        out = None
+        for call in ("cold", "warm"):
+            spans = {k: tuple(tel.spans.get(k, [0, 0.0, 0.0])[:2])
+                     for k in ("sparse.phase_a", "sparse.train")}
+            zero_k1(k1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = runner(params, h)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = k1_counts(k1)
+            if n != expect:
+                raise AssertionError(f"{label}: K1 launches (all, subset, "
+                                     f"weighted) {n}, not {expect}")
+            total += n
+        if not (np.isfinite(out.test_acc).all()
+                and np.isfinite(out.energy_per_client).all()):
+            raise AssertionError(f"{label}: non-finite result")
+        spent = {k: tel.spans[k][1] - v[1] for k, v in spans.items()
+                 if k in tel.spans and tel.spans[k][0] > v[0]}
+        per = out.participation.sum(axis=1)
+        log(f"[sweep] {label}: warm wall={wall:.3f} s "
+            f"({1e3 * wall / SWEEP_T:.2f} ms a round)"
+            + "".join(f", {k} {1e3 * v:.1f} ms" for k, v in spent.items())
+            + f", transmitters a round mean {per.mean():.2f} max "
+            f"{int(per.max())}, K1 launches={n[0]} (subset {n[1]}), "
+            f"final_acc={out.test_acc[-1]:.4f}")
+        return out
+
+    def traced(runner, h, label):
+        """One more run under the profiler: where a run's time goes."""
+        nonlocal total
+        zero_k1(k1)
+        trace_window(torch, f"{label}, one run", lambda: runner(params, h))
+        total += k1_counts(k1)
+
+    for K in SWEEP_K:
+        store, h = sweep_store(torch, K, "cuda")
+        if store.nbytes != store_bytes(K, SWEEP_PER_CLIENT, (784,)):
+            raise AssertionError("store footprint disagrees with store_bytes")
+        log(f"[sweep] K={K}: store {store.nbytes / 1e9:.3f} GB on the card "
+            f"({store_bytes(K, SWEEP_PER_CLIENT, (784,))} bytes)")
+        policy, cell = RandomScheme(16 / K, K), CellConfig(num_clients=K)
+        runner = make_sparse_runner(mlp_loss, mlp_accuracy, store, test,
+                                    policy, cell, cfg)
+        sparse_out = timed(runner, h, f"K={K} sparse", (SWEEP_T, SWEEP_T, 0))
+        if K == SWEEP_K[0]:
+            clients = [Dataset(store.x[k], store.y[k], 10) for k in range(K)]
+            dense = make_runner(mlp_loss, mlp_accuracy, clients, test, policy,
+                                cell, dataclasses.replace(
+                                    cfg, participation="dense"))
+            dense_out = timed(dense, h, f"K={K} dense baseline",
+                              (SWEEP_T, 0, 0))
+            traced(dense, h, f"K={K} dense baseline")
+            worst = held_to(np, sparse_out, dense_out)
+            log(f"[sweep] K={K}: sparse = dense (worst {worst:.3f} of the "
+                f"tolerance)")
+            del clients, dense
+        if K == SWEEP_K[-1]:
+            traced(runner, h, f"K={K} sparse")
+            data_key = data_stream_key(0, device="cuda")
+            part = torch.sort(torch.randint(0, K, (SWEEP_T, SWEEP_BUCKET),
+                                            device="cuda"), dim=1).values
+            ms = time_ms(torch, lambda: gather_participant_rounds(
+                store, data_key, part, 5, 10), None, iters=20, l2="warm")
+            log(f"[sweep] K={K}: participant gather alone ({SWEEP_T} x "
+                f"{SWEEP_BUCKET} x 5 x 10 x 784 float32, "
+                f"{SWEEP_T * SWEEP_BUCKET * 50 * 785 * 4 / 1e6:.0f} MB): "
+                f"{ms:.3f} ms")
+        if K == SWEEP_CPU_K:
+            cpu_store = DeviceDataStore(*(t.cpu() for t in store))
+            t0 = time.perf_counter()
+            ref = make_sparse_runner(
+                mlp_loss, mlp_accuracy, cpu_store,
+                Dataset(test.x.cpu(), test.y.cpu(), 10), policy, cell, cfg,
+                device="cpu")([{k: v.cpu() for k, v in layer.items()}
+                               for layer in params], h.cpu())
+            worst = held_to(np, sparse_out, ref)
+            log(f"[sweep] K={K}: card = CPU: masks, last_tx, eval rounds "
+                f"equal; energy, acc, loss, model within rtol {SLICE_RTOL} "
+                f"atol {SLICE_ATOL} (worst {worst:.3f}); cpu wall="
+                f"{time.perf_counter() - t0:.2f} s")
+            del cpu_store
+        del store, h, runner
+        torch.cuda.empty_cache()
+    built = train_trace_count() - builds
+    if built != 1:
+        raise AssertionError(f"phase B built {built} times over the sweep")
+    log(f"[sweep] phase B built once for the sweep "
+        f"(train_trace_count() +{built}); phase 3c (b) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1015,11 +1294,12 @@ def prefill_decode_parity(torch, dtype: str):
         trace_llm(torch, T, model, toks, P, 9)
 
 
-def trace_llm(torch, T, model, toks, P, N):
-    """A torch.profiler window over one prefill and then over N - 1 decode
-    steps: wall time (host clock to synchronize, with the profiler on),
-    device busy time (the summed time of the device's own events: one
-    stream, so they do not overlap) and the kernels that take most of it."""
+def trace_window(torch, name, fn):
+    """A torch.profiler window over ``fn``: wall time (host clock to
+    synchronize, with the profiler on), device busy time (the summed time of
+    the device's own events: one stream, so they do not overlap) and the
+    kernels that take most of it.  Only the profiler's own start and stop
+    may fail quietly; a fault of ``fn`` itself ends the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1030,41 +1310,42 @@ def trace_llm(torch, T, model, toks, P, N):
             return 0
         return getattr(e, "self_device_time_total", 0) or 0
 
-    def window(name, fn):
-        """Trace ``fn``.  Only the profiler's own start and stop may fail
-        quietly; a fault of the model itself ends the run."""
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        try:
-            prof.start()
-        except RuntimeError as err:
-            log(f"[trace] {name}: not measured (profiler start: {err})")
-            prof = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        if prof is None:
-            return
-        try:
-            prof.stop()
-        except RuntimeError as err:
-            log(f"[trace] {name}: not measured (profiler stop: {err})")
-            return
-        events = [e for e in prof.key_averages() if device_us(e) > 0]
-        busy = sum(device_us(e) for e in events) / 1e3
-        if busy == 0:
-            log(f"[trace] {name}: wall {wall:.2f} ms; device time not "
-                f"measured (the profiler saw no device activity)")
-            return
-        top = sorted(events, key=device_us, reverse=True)[:6]
-        parts = ", ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms "
-                          f"x{e.count}" for e in top)
-        log(f"[trace] {name}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-            f"({100 * busy / wall:.1f} %, idle {100 - 100 * busy / wall:.1f}"
-            f" %); top kernels: {parts}")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as err:
+        log(f"[trace] {name}: not measured (profiler start: {err})")
+        prof = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if prof is None:
+        return
+    try:
+        prof.stop()
+    except RuntimeError as err:
+        log(f"[trace] {name}: not measured (profiler stop: {err})")
+        return
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    busy = sum(device_us(e) for e in events) / 1e3
+    if busy == 0:
+        log(f"[trace] {name}: wall {wall:.2f} ms; device time not "
+            f"measured (the profiler saw no device activity)")
+        return
+    top = sorted(events, key=device_us, reverse=True)[:6]
+    parts = ", ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms "
+                      f"x{e.count}" for e in top)
+    log(f"[trace] {name}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f} %, idle {100 - 100 * busy / wall:.1f}"
+        f" %), {sum(e.count for e in events)} device events; top kernels: "
+        f"{parts}")
 
+
+def trace_llm(torch, T, model, toks, P, N):
+    """:func:`trace_window` over one prefill and then over N - 1 decode
+    steps."""
     state = {}
 
     def run_prefill():
@@ -1077,8 +1358,8 @@ def trace_llm(torch, T, model, toks, P, N):
             lg, caches = T.decode_step(model, toks[:, i:i + 1], caches)
 
     with torch.inference_mode():
-        window("prefill B4 x 1024", run_prefill)
-        window(f"decode {N - 1} steps", run_decode)
+        trace_window(torch, "prefill B4 x 1024", run_prefill)
+        trace_window(torch, f"decode {N - 1} steps", run_decode)
 
 
 def greedy(torch, T, model, prompts, new_tokens):
@@ -1491,7 +1772,15 @@ def main() -> int:
     max_err = check_kernel(torch)
     timing = time_kernel(torch, bandwidth)
     launches, world = slice_runs(torch)
-    launches += panel_runs(torch, world)
+    panel, panel_weighted = panel_runs(torch, world)
+    t0 = time.perf_counter()
+    sparse = sparse_runs(torch, world) + population_sweep(torch)
+    log(f"[sparse] phase 3c in {time.perf_counter() - t0:.1f} s")
+    k1_modes = {"plain": launches + panel - panel_weighted
+                + int(sparse[0] - sparse[1] - sparse[2]),
+                "subset": int(sparse[1]),
+                "weighted": panel_weighted + int(sparse[2])}
+    launches += panel + int(sparse[0])
     attn_err = check_flash(torch)
     attn_timing = time_flash(torch, bandwidth)
     attn_launches = generate_full_width(torch)
@@ -1516,6 +1805,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/fl_aggregate.cu",
         "replaces": "src/repro/kernels/fl_aggregate.py:43",
         "launches": launches,
+        "launches_by_mode": k1_modes,
         "max_abs_err": max_err,
         **timing[(K, MAIN_M, "float32")],
     }, {

@@ -57,19 +57,27 @@ def realize(key: torch.Tensor, decision: RoundDecision) -> torch.Tensor:
 
 
 def participants_from_mask(mask: torch.Tensor, bucket: int):
-    """Compact a realized ``[K]`` mask into a padded transmitting index set.
+    """Compact a realized ``[..., K]`` mask into padded transmitting index
+    sets, one per leading index (a round, or every round of a horizon).
 
-    Returns ``(idx [bucket] int32, valid [bucket] bool, n_tx int32)``:
-    ``idx`` holds the transmitting client ids in ascending order, padded with
-    the out-of-range sentinel ``K``.  When more than ``bucket`` clients
-    transmit the overflow is truncated; callers check ``n_tx <= bucket``.
+    Returns ``(idx [..., bucket] int32, valid [..., bucket] bool,
+    n_tx [...] int32)``: ``idx`` holds the transmitting client ids in
+    ascending order, padded with the out-of-range sentinel ``K``.  When more
+    than ``bucket`` clients transmit the overflow is truncated; callers
+    check ``n_tx <= bucket``.  A running count places each transmitter and
+    one scatter writes them, so the host never waits for the device (no
+    ``nonzero``).
     """
-    K = mask.shape[0]
+    K = mask.shape[-1]
     on = mask > 0
-    ids = torch.nonzero(on).flatten()[:bucket].to(torch.int32)
-    idx = torch.full((bucket,), K, dtype=torch.int32, device=mask.device)
-    idx[:ids.shape[0]] = ids
-    return idx, idx < K, on.sum().to(torch.int32)
+    pos = torch.cumsum(on, dim=-1)           # 1-based rank of a transmitter
+    # lane `bucket` takes the non-transmitters and the overflow; it is cut
+    slot = torch.where(on & (pos <= bucket), pos - 1, bucket)
+    ids = torch.arange(K, device=mask.device).expand_as(slot)
+    idx = torch.full(mask.shape[:-1] + (bucket + 1,), K, dtype=torch.int64,
+                     device=mask.device).scatter_(-1, slot, ids)
+    idx = idx[..., :bucket].to(torch.int32)
+    return idx, idx < K, on.sum(dim=-1).to(torch.int32)
 
 
 def realize_participants(key: torch.Tensor, decision: RoundDecision,

@@ -1,9 +1,12 @@
-"""FL runtime: the eager simulation engine on the device data store, and the
-aggregators (eq. 3, guarded, participant-subset and scheme-weighted)."""
+"""FL runtime: the eager simulation engine on the device data store, the
+participant-centric sparse engine, and the aggregators (eq. 3, guarded,
+participant-subset and scheme-weighted)."""
+from . import sparse
 from .engine import (SimConfig, SimResult, apply_round_decision,
                      check_ported, grant_forced_bandwidth, make_local_train,
-                     make_runner)
+                     make_runner, resolve_data_path)
 from .faults import GuardConfig
+from .sparse import make_sparse_runner, resolve_participation
 from .simulator import run_simulation
 from .state import (AggParams, AggregatorConfig, FLState, ParamLayout,
                     broadcast_to_participants, finite_rows, guard_weights,
@@ -15,7 +18,9 @@ from .state import (AggParams, AggregatorConfig, FLState, ParamLayout,
 
 __all__ = ["SimConfig", "SimResult", "apply_round_decision", "check_ported",
            "grant_forced_bandwidth", "make_local_train", "make_runner",
-           "run_simulation", "FLState", "ParamLayout",
+           "run_simulation", "resolve_data_path", "FLState", "ParamLayout",
+           # participant-centric sparse rounds
+           "sparse", "make_sparse_runner", "resolve_participation",
            "broadcast_to_participants", "init_fl_state", "masked_aggregate",
            "pseudo_gradients", "subset_aggregate",
            # robustness layer: the server-side guards

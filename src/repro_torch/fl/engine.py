@@ -9,9 +9,10 @@ the stacked per-round trace at the end.  PyTorch is eager, so the JAX
 package's ``lax.scan`` and host-loop engines collapse into this one loop.
 
 * **PRNG** — participation draws ``uniform(fold_in(PRNGKey(seed), t), (K,))``
-  and minibatches come from ``fold_in(data_key, t)``, bit for bit the JAX
-  streams (:mod:`repro_torch.random`), so both packages realize the same
-  masks and train on the same examples.
+  and minibatches come from ``fold_in(data_key, t)`` (``data_stream=
+  "round"``) or client by client from ``fold_in(fold_in(data_key, t), k)``
+  (``"client"``), bit for bit the JAX streams (:mod:`repro_torch.random`),
+  so both packages realize the same masks and train on the same examples.
 * **policies** — a ``state_free`` policy is solved once for all rounds (the
   JAX engine's hoisted ``vmap``); any other policy runs each round.
 * **evals** — at ``t % eval_every == 0 or t == rounds - 1``.
@@ -23,10 +24,14 @@ package's ``lax.scan`` and host-loop engines collapse into this one loop.
   probabilities, from before the aging boost.
 
 Ported: ``data_path`` ``"device"`` (and ``"auto"``, which resolves to it),
-``data_stream="round"``, ``participation`` ``"dense"`` (and ``"auto"``,
-which resolves to dense here), both ``local_mode`` values, ``max_staleness``,
-``aging_boost``, ``guards`` and ``aggregator``.  Every other ``SimConfig``
-setting raises ``NotImplementedError`` naming the field.
+both ``data_stream`` values, every ``participation`` value (``"sparse"``,
+and ``"auto"`` where its preconditions hold, dispatch to
+:mod:`repro_torch.fl.sparse` as JAX's ``make_runner`` does), both
+``local_mode`` values, ``max_staleness``, ``aging_boost``, ``guards``,
+``aggregator``, ``participant_bucket`` and ``overflow`` (read by the sparse
+runner only).  ``faults``, ``metrics``, ``eval_mode="replay"``,
+``checkpoint_every``, ``stream_chunk`` and the ``"stream"`` and
+``"prestack"`` data paths raise ``NotImplementedError`` naming the field.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ from .. import random as jr
 from .. import resolve_device
 from ..core.channel import CellConfig, rate_nats
 from ..core.selection import as_policy_fn
-from ..data.device import data_stream_key, from_client_datasets, sample_round
+from ..data.device import (data_stream_key, from_client_datasets,
+                           sample_round, sample_round_client_stream)
 from ..data.synthetic import Dataset
 from ..optim import Optimizer, sgd
 from .state import (FLState, broadcast_to_participants, guarded_aggregate,
@@ -80,15 +86,11 @@ class SimConfig:
 #: settings ported only in part: field -> the values this port runs
 _PORTED = {
     "data_path": ("auto", "device"),
-    "data_stream": ("round",),
-    "participation": ("dense", "auto"),
     "eval_mode": ("inscan",),
     "faults": (None,),
     "metrics": (None,),
     "checkpoint_every": (None,),
-    "participant_bucket": (None,),
     "stream_chunk": (256,),
-    "overflow": ("spill",),
 }
 
 
@@ -103,6 +105,25 @@ def check_ported(cfg: SimConfig) -> None:
     if cfg.local_mode not in ("continuous", "participants"):
         raise ValueError(f"unknown local_mode {cfg.local_mode!r} "
                          "(expected continuous|participants)")
+
+
+def resolve_data_path(cfg: SimConfig) -> str:
+    """``cfg.data_path`` as a path name, checked as JAX's
+    ``resolve_data_path`` checks it: ``"auto"`` is ``"device"`` here (the
+    port has no stream path), and the per-client stream needs the device
+    path."""
+    path = "device" if cfg.data_path == "auto" else cfg.data_path
+    if path not in ("prestack", "device", "stream"):
+        raise ValueError(f"unknown data_path {path!r} "
+                         "(expected auto|prestack|device|stream)")
+    if cfg.data_stream not in ("round", "client"):
+        raise ValueError(f"unknown data_stream {cfg.data_stream!r} "
+                         "(expected round|client)")
+    if cfg.data_stream == "client" and path != "device":
+        raise ValueError(
+            "the per-client minibatch stream is defined on the device data "
+            f"path only (resolved path: {path!r}); pass data_path='device'")
+    return path
 
 
 class SimResult(NamedTuple):
@@ -139,18 +160,23 @@ def apply_round_decision(probs: torch.Tensor, w: torch.Tensor, t: int,
     """Protocol Steps 3-4 + energy ledger given the round's (probs, w).
 
     Returns ``(mask, forced, w, e_round)``; the participation draw is
-    ``uniform(fold_in(base_key, t), (K,))``.
+    ``uniform(fold_in(base_key, t), (K,))``.  ``state`` is read only for
+    its ledger (``round``, ``last_tx``), and only with ``max_staleness``
+    set.  Without it, ``t`` may also be a tensor ``[T]`` of rounds with
+    ``probs``, ``w`` and ``h_t`` ``[T, K]``: every round's decision at
+    once, each row the one-round result.
     """
     K = num_clients
     probs = probs.to(torch.float32)
     w = w.to(torch.float32)
-    since = state.round - state.last_tx
+    if cfg.max_staleness is not None:
+        since = state.round - state.last_tx
     if cfg.aging_boost and cfg.max_staleness is not None:
         c = torch.clamp(since.to(torch.float32) / cfg.max_staleness, 0.0, 1.0)
         probs = 1.0 - (1.0 - probs) * (1.0 - c * c)
     u = jr.uniform(jr.fold_in(base_key, t), (K,), device=probs.device)
     mask = (u < probs).to(torch.float32)
-    forced = torch.zeros(K, dtype=torch.bool, device=probs.device)
+    forced = torch.zeros_like(mask, dtype=torch.bool)
     if cfg.max_staleness is not None:
         stale = since >= cfg.max_staleness
         forced = stale & (mask == 0.0)
@@ -165,11 +191,12 @@ def apply_round_decision(probs: torch.Tensor, w: torch.Tensor, t: int,
 
 
 def make_local_train(loss_fn: Callable, opt: Optimizer):
-    """Local SGD of all K clients at once: ``(flat [K, W], xb [K, L, B, ...],
-    yb [K, L, B], layout) -> flat``.  ``loss_fn`` takes params stacked over
-    clients and returns the ``[K]`` per-client mean losses; the gradient of
-    their sum with respect to the stacked row is each client's own gradient
-    (JAX's ``vmap(grad(loss_fn))``)."""
+    """Local SGD of R clients at once (all K, or a participant bucket):
+    ``(flat [R, W], xb [R, L, B, ...], yb [R, L, B], layout) -> flat``.
+    ``loss_fn`` takes params stacked over clients and returns the ``[R]``
+    per-client mean losses; the gradient of their sum with respect to the
+    stacked row is each client's own gradient (JAX's
+    ``vmap(grad(loss_fn))``)."""
 
     def local_train(flat, xb, yb, layout):
         state = opt.init(flat)
@@ -192,13 +219,24 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
     """Build the device data store once and return
     ``runner(params, h_all, seed=None) -> SimResult``.
 
-    ``h_all`` is ``[K, rounds]``; ``device=None`` means the card.
+    ``h_all`` is ``[K, rounds]``; ``device=None`` means the card.  Where
+    ``cfg.participation`` resolves to ``"sparse"``
+    (:func:`repro_torch.fl.sparse.resolve_participation`) the runner is
+    :func:`repro_torch.fl.sparse.make_sparse_runner`'s.
     """
+    from .sparse import make_sparse_runner, resolve_participation
+
+    policy_fn = as_policy_fn(policy)
+    path = resolve_data_path(cfg)
+    K = len(client_data)
+    if resolve_participation(cfg, policy_fn, path, K) == "sparse":
+        # opt passed as given: the sparse runner keys its phase-B cache on
+        # the default optimizer's (kind, lr)
+        return make_sparse_runner(loss_fn, acc_fn, client_data, test_ds,
+                                  policy_fn, cell, cfg, opt, device=device)
     check_ported(cfg)
     device = resolve_device(device)
-    K = len(client_data)
     T = cfg.rounds
-    policy_fn = as_policy_fn(policy)
     hoist = getattr(policy_fn, "state_free", False)
     guards = cfg.guards if cfg.guards is not None and cfg.guards.active \
         else None
@@ -206,6 +244,8 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
         else None
     opt = opt or sgd(cfg.lr)
     local_train = make_local_train(loss_fn, opt)
+    sample = (sample_round_client_stream if cfg.data_stream == "client"
+              else sample_round)
     store = from_client_datasets(client_data, device=device)
     data_key = data_stream_key(cfg.seed, device=device)
     test_x = test_ds.x[: cfg.eval_batch].to(device)
@@ -229,8 +269,8 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
             mask, _, w, e_round = apply_round_decision(
                 probs, w, t, h_t, state, key, cfg, cell, K)
             energy = energy + e_round
-            xb, yb = sample_round(store, data_key, t, cfg.local_iters,
-                                  cfg.batch_size)
+            xb, yb = sample(store, data_key, t, cfg.local_iters,
+                            cfg.batch_size)
             client = local_train(state.client_params, xb, yb, layout)
             if cfg.local_mode == "participants":
                 # only transmitting clients move; the rest keep client ==

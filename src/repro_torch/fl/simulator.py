@@ -11,6 +11,10 @@ Per round t:
   4. participants upload δ_k = x_k − y_k on their sub-channel (energy
      ledger: P_k · S / R_{k,t});
   5. the server applies x ← x + (1/K)Σδ_k and broadcasts x to participants.
+
+``cfg.participation`` chooses the engine as in :func:`make_runner`: the
+dense one, or the participant-centric sparse one
+(:mod:`repro_torch.fl.sparse`).
 """
 from __future__ import annotations
 

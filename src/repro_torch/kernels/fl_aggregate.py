@@ -9,8 +9,10 @@ take; it never falls back to the plain version.  :func:`launch_plan` is the
 kernel's tiling of M over the card's SMs, a pure function of the shape.
 The library is built and loaded on the first call, never at import, so the
 module imports on a host without CUDA.  ``fl_aggregate_cuda.launches``
-counts the launches, and ``fl_aggregate_cuda.guarded_launches`` those of
-them in the weighted (guarded) mode, ``guard=True``.
+counts the launches, ``fl_aggregate_cuda.guarded_launches`` those of them in
+the weighted (guarded) mode, ``guard=True``, and
+``fl_aggregate_cuda.subset_launches`` those in the subset mode,
+``subset=True`` (the same kernel: the flag only names the mode).
 """
 from __future__ import annotations
 
@@ -116,7 +118,8 @@ def library() -> BuiltLibrary:
 
 def fl_aggregate_cuda(global_p: torch.Tensor, deltas: torch.Tensor,
                       weights: torch.Tensor, inv_k: float,
-                      guard: bool = False) -> torch.Tensor:
+                      guard: bool = False,
+                      subset: bool = False) -> torch.Tensor:
     """``global_p: [M]``, ``deltas: [R, M]`` (same dtype, float32 or
     bfloat16, contiguous, on one CUDA device), ``weights: [R]`` → ``[M]``
     in ``global_p``'s dtype."""
@@ -157,8 +160,10 @@ def fl_aggregate_cuda(global_p: torch.Tensor, deltas: torch.Tensor,
                            f"{rc}")
     fl_aggregate_cuda.launches += 1
     fl_aggregate_cuda.guarded_launches += bool(guard)
+    fl_aggregate_cuda.subset_launches += bool(subset)
     return out
 
 
 fl_aggregate_cuda.launches = 0
 fl_aggregate_cuda.guarded_launches = 0
+fl_aggregate_cuda.subset_launches = 0

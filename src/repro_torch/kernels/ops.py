@@ -50,7 +50,7 @@ def fl_aggregate_subset(global_p, deltas, valid, num_clients):
     k = torch.as_tensor(num_clients, dtype=torch.float32,
                         device=valid.device)
     return fl_aggregate_cuda(global_p, deltas, valid.to(torch.float32) / k,
-                             1.0)
+                             1.0, subset=True)
 
 
 def fl_aggregate_guarded(global_p, deltas, weights):

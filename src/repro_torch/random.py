@@ -11,7 +11,10 @@ and ``random_bits`` hashes a 64-bit iota counter held as two 32-bit words,
 returning ``bits1 ^ bits2`` for 32-bit output.
 
 A key is an int64 tensor of shape ``[2]`` holding two uint32 words (JAX's raw
-``uint32[2]`` key).  Every uint32 operation is emulated in int64 with a
+``uint32[2]`` key); a batch of keys is ``[..., 2]``, and every sampler then
+draws for each key what ``jax.vmap`` of the JAX call over the keys draws
+(the per-client minibatch stream hashes a whole vector of client ids at
+once this way).  Every uint32 operation is emulated in int64 with a
 ``& 0xFFFFFFFF`` mask after each add and rotate, on the key's own device, so
 no uint32 kernel support is needed.  Samplers compute on ``device`` when it
 is given, else on the key's device.
@@ -58,40 +61,49 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def _hash_range(key: torch.Tensor, start: int, stop: int):
     """Both threefry output words for the flat counters ``[start, stop)``
-    of an iota (the low word; the high word is 0 below 2³²)."""
+    of an iota (the low word; the high word is 0 below 2³²), ``[...,
+    stop - start]`` for keys ``[..., 2]``."""
     if stop > 2 ** 32:
         raise NotImplementedError("counters beyond 2**32 elements")
     lo = torch.arange(start, stop, dtype=torch.int64, device=key.device)
-    return threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(lo), lo)
+    return threefry2x32(key[..., 0, None], key[..., 1, None],
+                        torch.zeros_like(lo), lo)
 
 
 def _hash_counts(key: torch.Tensor, shape: tuple[int, ...], device=None):
-    """``threefry2x32(key, iota_2x32(shape))``: both output words, shaped."""
+    """``threefry2x32(key, iota_2x32(shape))``: both output words, shaped
+    ``[..., *shape]`` for keys ``[..., 2]``."""
     key = key.to(device) if device is not None else key
     b1, b2 = _hash_range(key, 0, math.prod(shape))
-    return b1.reshape(shape), b2.reshape(shape)
+    out = key.shape[:-1] + tuple(shape)
+    return b1.reshape(out), b2.reshape(out)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in``: hash the counter ``(0, data mod 2³²)``."""
+    """``jax.random.fold_in``: hash the counter ``(0, data mod 2³²)``.
+
+    Keys ``[..., 2]`` and ``data`` (a number or a tensor) broadcast
+    together: the result is ``[..., 2]``, each key ``jax.random.fold_in``
+    of its key and datum, as ``jax.vmap`` of it gives."""
     if isinstance(data, torch.Tensor):
         d = data.to(device=key.device, dtype=torch.int64) & MASK
     else:
         d = torch.tensor(int(data) & MASK, dtype=torch.int64,
                          device=key.device)
-    b1, b2 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
-    return torch.stack([b1, b2])
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def split(key: torch.Tensor, num=2) -> torch.Tensor:
-    """``jax.random.split``: keys of shape ``(*num, 2)``."""
+    """``jax.random.split``: keys of shape ``(..., *num, 2)``."""
     shape = tuple(num) if isinstance(num, (tuple, list)) else (int(num),)
     b1, b2 = _hash_counts(key, shape)
     return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2³²)."""
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2³²),
+    ``[..., *shape]`` for keys ``[..., 2]``."""
     b1, b2 = _hash_counts(key, tuple(shape), device)
     return b1 ^ b2
 
@@ -112,7 +124,8 @@ def _bits_to_uniform(bits: torch.Tensor, minval: float,
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0, device=None) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits under the
-    exponent of 1.0, minus 1, then scaled into ``[minval, maxval)``."""
+    exponent of 1.0, minus 1, then scaled into ``[minval, maxval)``;
+    ``[..., *shape]`` for keys ``[..., 2]``."""
     return _bits_to_uniform(random_bits(key, shape, device), minval, maxval)
 
 

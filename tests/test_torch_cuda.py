@@ -1,5 +1,6 @@
 """The port on an NVIDIA card: K1 (fl_aggregate) against its plain version,
-and a small simulation on the card against the same run on the CPU.
+a small simulation on the card against the same run on the CPU, and the
+sparse engine against the dense one on the card.
 
 Every test here is marked ``cuda`` and skips where there is no card.  This
 file imports neither JAX nor the JAX package, so it also runs on a host that
@@ -7,6 +8,8 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,11 +17,12 @@ import torch
 from repro_torch import random as jr
 from repro_torch.core import CellConfig
 from repro_torch.core.channel import channel_gains, sample_positions
-from repro_torch.core.selection import RandomScheme
-from repro_torch.data import Dataset, make_mnist_like, shard_noniid
+from repro_torch.core.selection import AgeAwareScheme, RandomScheme
+from repro_torch.data import (Dataset, DeviceDataStore, make_mnist_like,
+                              shard_noniid)
 from repro_torch.fl import (AggregatorConfig, GuardConfig, SimConfig,
-                            guarded_aggregate, run_simulation,
-                            scheme_aggregate)
+                            guarded_aggregate, make_sparse_runner,
+                            run_simulation, scheme_aggregate)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
 from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
@@ -182,3 +186,84 @@ def test_weighted_aggregators_launch_k1_once(card, fn, R, M):
     want = run("cpu")
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+SPARSE_KW = dict(local_mode="participants", data_path="device",
+                 data_stream="client")
+
+
+def small_world(card, K, T):
+    gen = torch.Generator(device=card).manual_seed(K)
+    x = torch.randn(K, 6, 12, generator=gen, device=card)
+    y = (torch.arange(6, device=card, dtype=torch.int32) % 10).expand(K, 6)
+    clients = [Dataset(x[k], y[k].contiguous(), 10) for k in range(K)]
+    test = Dataset(x[:, 0], y[:, 0].contiguous(), 10)
+    h = torch.rand(K, T, generator=gen, device=card) * 9.9e-13 + 1e-14
+    return clients, test, h, init_mlp(jr.PRNGKey(4), dims=(12, 8, 10),
+                                      device=card)
+
+
+@pytest.mark.parametrize("name", ["random", "random-staleness", "age-aware"])
+def test_sparse_matches_dense_on_the_card(card, name):
+    """Masks, eval rounds and ``last_tx`` bit for bit; energy at rtol 1e-6;
+    accuracy, loss and the model at rtol 1e-4, atol 1e-5 (K1's subset mode
+    and its plain mode round eq. 3 differently)."""
+    K, T = 24, 8
+    clients, test, h, params = small_world(card, K, T)
+    policy, extra = {
+        "random": (RandomScheme(0.25, K), {}),
+        "random-staleness": (RandomScheme(0.1, K), dict(max_staleness=3)),
+        "age-aware": (AgeAwareScheme(3, K), dict(
+            aggregator=AggregatorConfig(kind="age"),
+            guards=GuardConfig(quarantine=True)))}[name]
+    cfg = SimConfig(rounds=T, local_iters=2, batch_size=4, eval_every=3,
+                    participant_bucket=K, **SPARSE_KW, **extra)
+    cell = CellConfig(num_clients=K)
+    runs = {mode: run_simulation(params, mlp_loss, mlp_accuracy, clients,
+                                 test, policy, h, cell,
+                                 dataclasses.replace(cfg, participation=mode))
+            for mode in ("dense", "sparse")}
+    dense, sp = runs["dense"], runs["sparse"]
+    assert sp.state.client_params is None
+    np.testing.assert_array_equal(sp.participation, dense.participation)
+    np.testing.assert_array_equal(sp.eval_rounds, dense.eval_rounds)
+    assert torch.equal(sp.state.last_tx, dense.state.last_tx)
+    np.testing.assert_allclose(sp.energy_per_client, dense.energy_per_client,
+                               rtol=1e-6)
+    for field in ("test_acc", "test_loss"):
+        np.testing.assert_allclose(getattr(sp, field), getattr(dense, field),
+                                   rtol=1e-4, atol=1e-5, err_msg=field)
+    torch.testing.assert_close(sp.state.global_params,
+                               dense.state.global_params, rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_sparse_launches_k1_once_a_round_in_subset_mode(card):
+    """A pre-built store on the card: phase B launches K1 once a round in
+    its subset mode over the bucket, and equals the same run on the CPU."""
+    K, T, bucket = 1031, 6, 64
+    gen = torch.Generator(device=card).manual_seed(0)
+    store = DeviceDataStore(
+        torch.randn(K, 8, 12, generator=gen, device=card),
+        (torch.arange(8, device=card, dtype=torch.int32) % 10).repeat(K, 1),
+        torch.full((K,), 8, dtype=torch.int32, device=card))
+    test = Dataset(store.x[:64, 0], store.y[:64, 0], 10)
+    h = torch.rand(K, T, generator=gen, device=card) * 9.9e-13 + 1e-14
+    params = init_mlp(jr.PRNGKey(4), dims=(12, 8, 10), device=card)
+    cfg = SimConfig(rounds=T, local_iters=2, batch_size=4, eval_every=2,
+                    participant_bucket=bucket, **SPARSE_KW)
+    policy, cell = RandomScheme(16 / K, K), CellConfig(num_clients=K)
+    before = (fl_aggregate_cuda.launches, fl_aggregate_cuda.subset_launches)
+    got = make_sparse_runner(mlp_loss, mlp_accuracy, store, test, policy,
+                             cell, cfg)(params, h)
+    assert (fl_aggregate_cuda.launches - before[0],
+            fl_aggregate_cuda.subset_launches - before[1]) == (T, T)
+    cpu = DeviceDataStore(*(t.cpu() for t in store))
+    want = make_sparse_runner(
+        mlp_loss, mlp_accuracy, cpu, Dataset(test.x.cpu(), test.y.cpu(), 10),
+        policy, cell, cfg, device="cpu")(
+        [{k: v.cpu() for k, v in layer.items()} for layer in params], h.cpu())
+    np.testing.assert_array_equal(got.participation, want.participation)
+    for field in ("energy_per_client", "test_acc", "test_loss"):
+        np.testing.assert_allclose(getattr(got, field), getattr(want, field),
+                                   rtol=1e-4, atol=1e-5, err_msg=field)

@@ -1,6 +1,7 @@
 """Data and model of the port against the JAX package: the synthetic MNIST
-stand-in, the non-IID shards, the device store's per-round minibatch stream,
-and the MLP (init, loss, accuracy, gradients, stacked over clients).
+stand-in, the non-IID shards, the device store's per-round and per-client
+minibatch streams, the participant gather and the store footprint, and the
+MLP (init, loss, accuracy, gradients, stacked over clients).
 
 Integer outputs (labels, shard membership, minibatch indices) must match bit
 for bit.  Floats: inputs built through ``normal`` to 1e-5 (erfinv rounds a
@@ -13,6 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro.data.device as jdev
+from _hypothesis_stub import given, settings, st
+from repro.data import Dataset as JDataset
 from repro.data import data_stream_key as j_data_stream_key
 from repro.data import from_client_datasets as j_from_client_datasets
 from repro.data import make_mnist_like as j_make_mnist_like
@@ -23,9 +27,12 @@ from repro.models.small import mlp_accuracy as j_mlp_accuracy
 from repro.models.small import mlp_loss as j_mlp_loss
 from repro_torch import random as jr
 from repro_torch.convert import params_from_jax, params_to_numpy
-from repro_torch.data import (Dataset, data_stream_key, from_client_datasets,
-                              make_mnist_like, round_indices, sample_round,
-                              shard_noniid)
+from repro_torch.data import (Dataset, client_round_indices, data_stream_key,
+                              estimate_store_bytes, from_client_datasets,
+                              gather_participant_rounds, make_mnist_like,
+                              round_indices, round_indices_client_stream,
+                              sample_round, sample_round_client_stream,
+                              shard_noniid, store_bytes)
 from repro_torch.fl.state import ParamLayout
 from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
 
@@ -101,6 +108,92 @@ def test_round_batches_bit_exact(stores, seed, t):
     np.testing.assert_array_equal(x.numpy(), np.asarray(wx))
     idx = round_indices(data_stream_key(seed), t, mine.lengths, 5, 10)
     assert (idx.numpy() < mine.lengths.numpy()[:, None, None]).all()
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("t", [0, 17])
+def test_client_stream_bit_exact(stores, seed, t):
+    """The per-client stream (``data_stream="client"``): indices, batches and
+    one client's direct draw equal JAX's; row k is client k's own draw."""
+    want, mine = stores
+    key, jkey = data_stream_key(seed), j_data_stream_key(seed)
+    idx = round_indices_client_stream(key, t, mine.lengths, 5, 10)
+    widx = jdev.round_indices_client_stream(jkey, jnp.int32(t), want.lengths,
+                                            5, 10)
+    assert idx.shape == (K, 5, 10) and idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(widx))
+    assert (idx.numpy() < mine.lengths.numpy()[:, None, None]).all()
+    x, y = sample_round_client_stream(mine, key, t, 5, 10)
+    wx, wy = jdev.sample_round_client_stream(want, jkey, jnp.int32(t), 5, 10)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(wx))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(wy))
+    for k in (0, K - 1):
+        one = client_round_indices(key, t, k, mine.lengths[k], 5, 10)
+        np.testing.assert_array_equal(one.numpy(), idx[k].numpy())
+
+
+def test_participant_gather_bit_exact(stores):
+    """Every round's participants at once, padding lanes (id K) included:
+    JAX's raw-id hash and clamped row, bit for bit."""
+    want, mine = stores
+    part = np.array([[0, 3, 9, K], [2, K, K, K], [1, 4, 5, 8]], np.int32)
+    x, y = gather_participant_rounds(mine, data_stream_key(5),
+                                     torch.from_numpy(part), 3, 4)
+    wx, wy = jdev.gather_participant_rounds(want, j_data_stream_key(5),
+                                            jnp.asarray(part), 3, 4)
+    assert x.shape == (3, 4, 3, 4, 784) and y.shape == (3, 4, 3, 4)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(wx))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(wy))
+
+
+@settings(max_examples=25, deadline=None)
+@given(st.integers(0, 2 ** 16), st.integers(0, 7),
+       st.lists(st.integers(1, 9), min_size=2, max_size=6),
+       st.integers(0, 2 ** 10))
+def test_property_participant_gather_matches_dense_stream(seed, t, lens,
+                                                          subset_bits):
+    """tests/test_sparse_engine.py's property on the port, held against JAX
+    too: indices never land in padding, and gathering a participant subset
+    equals the same rows of the dense client-stream draw."""
+    n = len(lens)
+    key = data_stream_key(seed)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    idx = round_indices_client_stream(key, t, lengths, 2, 3)
+    assert ((idx >= 0) & (idx < lengths[:, None, None])).all()
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(
+        jdev.round_indices_client_stream(j_data_stream_key(seed),
+                                         jnp.int32(t), jnp.asarray(lens), 2,
+                                         3)))
+    # x rows encode (client, example)
+    store = from_client_datasets([Dataset(
+        (torch.arange(m, dtype=torch.float32)[:, None] + 100.0 * k)
+        * torch.ones(1, 2), torch.full((m,), k % 4, dtype=torch.int32), 4)
+        for k, m in enumerate(lens)], device="cpu")
+    dense_x, dense_y = sample_round_client_stream(store, key, t, 2, 3)
+    chosen = [k for k in range(n) if (subset_bits >> k) & 1]
+    bucket = len(chosen) + 1                          # ≥ 1 padding lane
+    part = torch.tensor(chosen + [n] * (bucket - len(chosen)),
+                        dtype=torch.int32)
+    gx, gy = gather_participant_rounds(store, key, part.repeat(t + 1, 1), 2,
+                                       3)
+    for p, k in enumerate(chosen):
+        assert torch.equal(gx[t, p], dense_x[k])
+        assert torch.equal(gy[t, p], dense_y[k])
+
+
+def test_store_bytes_match_jax_and_the_built_store(stores):
+    want, mine = stores
+    clients = [Dataset(torch.ones(m, 5), torch.zeros(m, dtype=torch.int32), 3)
+               for m in (4, 9, 6)]
+    assert estimate_store_bytes(clients) == from_client_datasets(
+        clients, device="cpu").nbytes == jdev.estimate_store_bytes(
+        [JDataset(jnp.ones((m, 5)), jnp.zeros((m,), jnp.int32), 3)
+         for m in (4, 9, 6)])
+    assert store_bytes(K, mine.x.shape[1], (784,)) == mine.nbytes
+    for args in ((10 ** 6, 8, (784,)), (10 ** 9, 64, (28, 28)),
+                 (3, 5, (2, 3), 2)):
+        assert store_bytes(*args) == jdev.store_bytes(*args)
+    assert store_bytes(10 ** 6, 8, (784,)) == 25_124_000_000   # 25.1 GB
 
 
 def test_init_mlp_matches():

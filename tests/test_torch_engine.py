@@ -28,6 +28,7 @@ from repro.fl import AggregatorConfig as JAgg
 from repro.fl import GuardConfig as JGuard
 from repro.fl import SimConfig as JSimConfig
 from repro.fl import grant_forced_bandwidth as j_grant
+from repro.fl import make_runner as j_make_runner
 from repro.fl import run_simulation as j_run_simulation
 from repro.models.small import init_mlp as j_init_mlp
 from repro.models.small import mlp_accuracy as j_mlp_accuracy
@@ -109,6 +110,8 @@ def configs(extra):
 CASES = {
     "proposed-continuous": ("proposed", {}),
     "random-participants": ("random", dict(local_mode="participants")),
+    "random-participants-client-stream": (
+        "random", dict(local_mode="participants", data_stream="client")),
     "proposed-staleness3": ("proposed", dict(max_staleness=3)),
     "random-participants-staleness3-aging": (
         "random", dict(local_mode="participants", max_staleness=3,
@@ -225,11 +228,10 @@ def test_guards_and_aggregator_are_ported(world, field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("faults", object()),
-    ("metrics", object()), ("participation", "sparse"),
+    ("metrics", object()),
     ("data_path", "stream"), ("data_path", "prestack"),
-    ("data_stream", "client"), ("eval_mode", "replay"),
-    ("checkpoint_every", 5), ("participant_bucket", 8), ("stream_chunk", 4),
-    ("overflow", "error"),
+    ("eval_mode", "replay"),
+    ("checkpoint_every", 5), ("stream_chunk", 4),
 ])
 def test_unported_settings_raise(world, field, value):
     cfg = dataclasses.replace(SimConfig(rounds=2), **{field: value})
@@ -237,6 +239,44 @@ def test_unported_settings_raise(world, field, value):
         make_runner(mlp_loss, mlp_accuracy, world["t_clients"],
                     world["t_test"], policies("random")[1],
                     CellConfig(num_clients=K), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("extra,error", [
+    # JAX: the sparse path implements the participants local mode only
+    (dict(participation="sparse", data_stream="client"), "participants"),
+    # JAX: the per-client stream is defined on the device data path only
+    (dict(data_path="prestack", data_stream="client"), "device data path"),
+    # JAX: the dense engine takes the sparse-only settings and ignores them
+    (dict(participant_bucket=8), None),
+    (dict(overflow="error"), None),
+])
+def test_sparse_settings_behave_as_in_jax(world, extra, error):
+    """What JAX's ``make_runner`` does with the settings the sparse slice
+    ported: these four cases replace ones that expected
+    ``NotImplementedError``."""
+    cfg = SimConfig(rounds=2, local_iters=1, **extra)
+    jcfg = JSimConfig(rounds=2, local_iters=1, **extra)
+    jpol, tpol = policies("random")
+    args = (world["t_clients"], world["t_test"], tpol,
+            CellConfig(num_clients=K), cfg)
+    jargs = (world["clients"], world["test"], jpol, JCell(num_clients=K),
+             jcfg)
+    if error is not None:
+        for build, a, kw in ((make_runner, args, dict(device="cpu")),
+                             (j_make_runner, jargs, {})):
+            with pytest.raises(ValueError, match=error):
+                build(mlp_loss if build is make_runner else j_mlp_loss,
+                      mlp_accuracy if build is make_runner
+                      else j_mlp_accuracy, *a, **kw)
+        return
+    got = make_runner(mlp_loss, mlp_accuracy, *args, device="cpu")(
+        world["t_params"], world["t_h"][:, :2])
+    want = j_make_runner(j_mlp_loss, j_mlp_accuracy, *jargs)(
+        world["params"], world["h"][:, :2])
+    assert got.state.client_params is not None       # the dense engine ran
+    np.testing.assert_array_equal(got.participation, want.participation)
+    np.testing.assert_allclose(got.test_loss, want.test_loss, rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_unknown_local_mode_raises(world):

@@ -132,3 +132,41 @@ def test_sampling_follows_the_key_or_the_device_argument():
     key = jr.PRNGKey(0)
     assert jr.uniform(key, (3,)).device == key.device
     assert jr.uniform(key, (3,), device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**32 - 1])
+def test_batched_fold_in_matches_vmap(seed):
+    """A vector of data gives ``[n, 2]`` keys, a batch of keys folded with
+    data of the same shape gives one key each: ``jax.vmap`` of fold_in."""
+    data = np.array([0, 1, 7, 0x0DA7A, 2**31, 2**32 - 1], np.uint32)
+    key = jax.random.PRNGKey(seed)
+    want = jax.vmap(lambda d: jax.random.fold_in(key, d))(data)
+    got = jr.fold_in(jr.PRNGKey(seed), torch.from_numpy(data.astype(np.int64)))
+    assert got.shape == (6, 2)
+    np.testing.assert_array_equal(got.numpy(), _jax(want))
+    # the per-client stream's two levels: rounds [T, 1], then ids [T, P]
+    ts, ids = np.arange(3)[:, None], np.array([[0, 5, 9], [2, 3, 9],
+                                               [1, 1, 4]], np.uint32)
+    want = jax.vmap(jax.vmap(lambda t, k: jax.random.fold_in(
+        jax.random.fold_in(key, t), k)))(np.broadcast_to(ts, ids.shape), ids)
+    got = jr.fold_in(jr.fold_in(jr.PRNGKey(seed), torch.from_numpy(ts)),
+                     torch.from_numpy(ids.astype(np.int64)))
+    assert got.shape == (3, 3, 2)
+    np.testing.assert_array_equal(got.numpy(), _jax(want))
+
+
+@pytest.mark.parametrize("shape", [(), (10,), (5, 10)])
+def test_batched_uniform_and_bits_match_vmap(shape):
+    """Keys ``[..., 2]`` draw ``[..., *shape]``: row i is the draw of key i,
+    as ``jax.vmap`` of uniform / bits over the keys."""
+    keys = jax.random.split(jax.random.PRNGKey(3), 12).reshape(3, 4, 2)
+    tkeys = torch.from_numpy(_jax(keys))
+    flat = keys.reshape(12, 2)
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape))(
+        flat)).reshape((3, 4) + shape)
+    got = jr.uniform(tkeys, shape).numpy()
+    assert got.shape == (3, 4) + shape
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    want = jax.vmap(lambda k: jax.random.bits(k, shape, jnp.uint32))(flat)
+    np.testing.assert_array_equal(jr.random_bits(tkeys, shape).numpy(),
+                                  _jax(want).reshape((3, 4) + shape))
