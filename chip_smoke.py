@@ -58,6 +58,24 @@ Phases, each reporting on its own lines:
    baseline at K = 10³ held against the sparse run; the participant gather
    alone at 10⁶; K = 10⁵ held against the same run on the CPU; phase B
    built once for the whole sweep;
+3d. faults and the matrix sweeps, each on the card against the same run
+   on the CPU (masks, deliveries, corruptions and ``last_tx`` bit for bit,
+   floats within rtol 1e-4, atol 1e-5, NaN in the same places): (a) phase
+   3's world under benchmarks/bench_faults.py's fault cocktail with
+   RandomScheme(0.5): dense unguarded NaN, dense guarded NaN, Inf and
+   ×100 uploads, and guarded and unguarded NaN on the sparse path
+   (participants mode, bucket 8) against the dense one; every run must
+   corrupt a delivery, and K1 must reduce real non-finite rows in its
+   plain, subset and weighted modes (counted by rows, by weight); (b)
+   ``run_fault_matrix`` over bench_faults.py's rates 0–1 (guarded all
+   finite, unguarded finite at rate 0, delivered mass falling with the
+   rate); (c) ``run_scheme_matrix`` at benchmarks/fig6_7_schemes.py's
+   fig6_k10 setting (K 10, 5,000 examples, severities d = 2 and 5, T 16,
+   seeds 0 and 1, the matched 5-scheme panel: 20 lanes), dense and sparse
+   on the card (sparse = dense; phase B built once; a lane = a single run)
+   and dense on the CPU; (d) ``run_seed_matrix`` for the three baselines on
+   3 seed lanes and ``run_scenario_matrix`` over ρ 0.01, 0.05, 0.2 on one
+   lane, at benchmarks/bench_engine.py's K 10 setting;
 4. attention kernel — K2 (``flash_attention``) against its plain version on
    the card: the sweeps of tests/test_kernels.py (MHA, GQA 2:1 and 4:1,
    MQA, hd 64 and 128), windows 1 to 128, ``causal=False``, ragged S (1,
@@ -110,8 +128,9 @@ order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(K1, K2 and K3), each with its launches on its main path (phases 3, 3b and
-3c for K1, also counted by mode: plain, subset and weighted; the generate
+(K1, K2 and K3), each with its launches on its main path (phases 3 to 3d
+for K1, also counted by mode: plain, subset and weighted, with the
+non-finite rows phase 3d's faulty runs reduced; the generate
 run of phase 5a for K2, that of phase 7a for K3) and its times at the main
 path's shape.
 """
@@ -940,6 +959,562 @@ def population_sweep(torch):
         f"(train_trace_count() +{built}); phase 3c (b) in "
         f"{time.perf_counter() - t_phase:.1f} s")
     return total
+
+
+# ---------------------------------------------------------------------------
+# phase 3d
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_faults.py's FAULTS and GUARDS (:44-48), its policy
+# (:90) and its full severity sweep
+FAULT_KW = dict(p_fail=0.1, p_recover=0.5, diurnal_amp=0.5, p_crash=0.05,
+                p_loss=0.2, max_retries=1, backoff=2.0, p_corrupt=0.2)
+GUARD_KW = dict(quarantine=True, clip_norm=10.0, staleness_power=0.5)
+FAULT_P, FAULT_RATES = 0.5, (0.0, 0.25, 0.5, 0.75, 1.0)
+# benchmarks/fig6_7_schemes.py's fig6_k10 setting, its non-FULL branch
+SCHEME_T, SCHEME_TRAIN, SCHEME_SEEDS, SEVERITIES = 16, 5_000, (0, 1), (2, 5)
+# benchmarks/bench_engine.py's K 10 matrix (bench_matrix); the scenario
+# matrix runs 1 of its 3 uniform lanes (the chip's time), and neither
+# matrix runs its 2 near/far lanes
+ENGINE_T, ENGINE_TRAIN, ENGINE_LANES = 16, 5_000, 3
+ENGINE_RHOS = (0.01, 0.05, 0.2)
+
+
+class PoisonedRows:
+    """While active, wraps ``repro_torch.kernels.ops``' three K1 entry
+    points to count, for every launch on the card, the non-finite delta
+    rows it reduces: in the plain and subset modes by whether the row's
+    weight is 0, in the weighted mode by launch.  It reads the rows before
+    the launch and changes nothing: K1's own launch counters are the
+    wrappers'."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import ops
+        self.torch, self.ops = torch, ops
+        self.n = dict(plain_w1=0, plain_w0=0, plain_launches=0,
+                      subset_w1=0, subset_w0=0, weighted_rows=0,
+                      weighted_launches=0)
+
+    def _bad(self, d):
+        return ~self.torch.isfinite(d).all(dim=1)
+
+    def __enter__(self):
+        ops, n = self.ops, self.n
+        self.saved = (ops.fl_aggregate, ops.fl_aggregate_subset,
+                      ops.fl_aggregate_guarded)
+        plain, subset, guarded = self.saved
+
+        def spy_plain(g, d, mask):
+            if g.is_cuda:
+                bad = self._bad(d)
+                w1 = int((bad & (mask != 0)).sum())
+                w0 = int((bad & (mask == 0)).sum())
+                n["plain_w1"] += w1
+                n["plain_w0"] += w0
+                n["plain_launches"] += bool(w1 + w0)
+            return plain(g, d, mask)
+
+        def spy_subset(g, d, valid, num_clients):
+            if g.is_cuda:
+                bad = self._bad(d)
+                n["subset_w1"] += int((bad & (valid != 0)).sum())
+                n["subset_w0"] += int((bad & (valid == 0)).sum())
+            return subset(g, d, valid, num_clients)
+
+        def spy_guarded(g, d, weights):
+            if g.is_cuda:
+                rows = int(self._bad(d).sum())
+                n["weighted_rows"] += rows
+                n["weighted_launches"] += bool(rows)
+            return guarded(g, d, weights)
+
+        ops.fl_aggregate = spy_plain
+        ops.fl_aggregate_subset = spy_subset
+        ops.fl_aggregate_guarded = spy_guarded
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.fl_aggregate, self.ops.fl_aggregate_subset,
+         self.ops.fl_aggregate_guarded) = self.saved
+        return False
+
+
+def held_nan(np, got, ref, fields=("participation", "delivered",
+                                   "corrupted", "eval_rounds")) -> float:
+    """Faulty runs: ``fields`` and ``last_tx`` equal bit for bit; energy,
+    accuracy, loss and the model's own parameters within the slice
+    tolerance, NaN in the same places.  Returns the worst finite float as
+    a share of its tolerance."""
+    for name in fields:
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name),
+                                      err_msg=name)
+    np.testing.assert_array_equal(got.state.last_tx.cpu().numpy(),
+                                  ref.state.last_tx.cpu().numpy())
+    layout = got.state.layout
+    pairs = [(getattr(got, n), getattr(ref, n), n) for n in (
+        "energy_per_client", "energy_timeline", "test_acc", "test_loss")]
+    pairs.append((got.state.global_params.cpu().numpy()[:layout.size],
+                  ref.state.global_params.cpu().numpy()[:layout.size],
+                  "global model"))
+    return max(held_floats(np, a, b, name) for a, b, name in pairs)
+
+
+def held_floats(np, a, b, name) -> float:
+    a, b = np.asarray(a), np.asarray(b)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b),
+                                  err_msg=f"{name}: NaN positions")
+    np.testing.assert_allclose(a, b, rtol=SLICE_RTOL, atol=SLICE_ATOL,
+                               equal_nan=True, err_msg=name)
+    ok = np.isfinite(a) & np.isfinite(b)
+    if not ok.any():
+        return 0.0
+    return float(np.max(np.abs(a[ok] - b[ok])
+                        / (SLICE_ATOL + SLICE_RTOL * np.abs(b[ok]))))
+
+
+def fault_runs(torch, world):
+    """(a) single faulty runs on phase 3's world; returns K1's launches as
+    (plain, subset, weighted) and the poisoned rows they reduced."""
+    import numpy as np
+
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.fl import (FaultConfig, GuardConfig, SimConfig,
+                                run_simulation)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    t_sub = time.perf_counter()
+    cell, h = world["cell"], world["h"]
+    base = SimConfig(rounds=T, local_iters=5, batch_size=10, eval_every=4)
+    guards = GuardConfig(**GUARD_KW)
+
+    def faulty(mode, **kw):
+        return dataclasses.replace(
+            base, faults=FaultConfig(**FAULT_KW, corrupt_mode=mode), **kw)
+
+    def participants(engine, **kw):
+        return faulty("nan", participant_bucket=8, participation=engine,
+                      **SPARSE_KW, **kw)
+
+    runs = [  # name, config, K1's mode
+        ("dense unguarded nan", faulty("nan"), "plain"),
+        ("dense guarded nan", faulty("nan", guards=guards), "weighted"),
+        ("dense guarded inf", faulty("inf", guards=guards), "weighted"),
+        ("dense guarded scale", faulty("scale", guards=guards), "weighted"),
+        ("sparse guarded nan", participants("sparse", guards=guards),
+         "weighted"),
+        ("dense guarded nan (participants)",
+         participants("dense", guards=guards), "weighted"),
+        ("sparse unguarded nan", participants("sparse"), "subset"),
+        ("dense unguarded nan (participants)", participants("dense"),
+         "plain")]
+    policy = RandomScheme(p_bar=FAULT_P, num_clients=K)
+    card = {}
+    zero_k1(k1)
+    with PoisonedRows(torch) as spy:
+        for name, cfg, mode in runs:
+            before = k1_counts(k1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_simulation(world["params"], mlp_loss, mlp_accuracy,
+                                 world["clients"], world["test"], policy, h,
+                                 cell, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = [a - b for a, b in zip(k1_counts(k1), before)]
+            sparse = cfg.participation == "sparse"
+            want = [T, T * (mode == "subset"), T * (mode == "weighted")]
+            if n != want or (out.state.client_params is None) != sparse:
+                raise AssertionError(f"{name}: K1 launches (all, subset, "
+                                     f"weighted) {n}, not {want}")
+            if out.corrupted is None or out.corrupted.sum() < 1:
+                raise AssertionError(f"{name}: no delivery was corrupted")
+            finite = bool(torch.isfinite(out.state.global_params).all())
+            if finite != (mode == "weighted"):
+                raise AssertionError(f"{name}: final model finite={finite}")
+            card[name] = out
+            log(f"[faults] {name:35s} card: decided="
+                f"{int(out.participation.sum())} delivered="
+                f"{int(out.delivered.sum())} corrupted="
+                f"{int(out.corrupted.sum())} final_loss="
+                f"{out.test_loss[-1]:.4f} final_acc={out.test_acc[-1]:.4f} "
+                f"model finite={finite} energy="
+                f"{out.energy_per_client.sum():.4f} J wall={wall:.2f} s K1 "
+                f"launches={n[0]}, subset={n[1]}, weighted={n[2]}")
+    counts = np.asarray(k1_counts(k1))
+    p = spy.n
+    if min(p["plain_w1"], p["subset_w1"], p["weighted_launches"]) < 1:
+        raise AssertionError(f"K1 reduced no poisoned row in a mode: {p}")
+    log(f"[faults] K1 reduced real non-finite rows: plain mode "
+        f"{p['plain_w1']} of weight 1 and {p['plain_w0']} of weight 0 in "
+        f"{p['plain_launches']} launches; subset mode {p['subset_w1']} of "
+        f"weight > 0 and {p['subset_w0']} of weight 0; weighted (guarded) "
+        f"mode {p['weighted_rows']} rows in {p['weighted_launches']} "
+        f"launches (of {int(counts[2])}); K1 launches plain "
+        f"{int(counts[0] - counts[1] - counts[2])}, subset {int(counts[1])}, "
+        f"weighted {int(counts[2])}")
+    for guard in ("guarded", "unguarded"):
+        worst = held_nan(np, card[f"sparse {guard} nan"],
+                         card[f"dense {guard} nan (participants)"])
+        log(f"[faults] sparse {guard} = dense on the card under faults: "
+            f"masks, deliveries, corruptions, last_tx equal; NaN in the same "
+            f"places; floats within rtol {SLICE_RTOL} atol {SLICE_ATOL} "
+            f"(worst {worst:.3f})")
+    for name, cfg, _ in runs:
+        t0 = time.perf_counter()
+        ref = run_simulation(world["c_params"], mlp_loss, mlp_accuracy,
+                             world["c_clients"], world["c_test"], policy,
+                             h.cpu(), cell, cfg, device="cpu")
+        worst = held_nan(np, card[name], ref)
+        log(f"[faults] {name:35s} cpu: masks, deliveries, corruptions, "
+            f"last_tx equal; NaN in the same places; floats within rtol "
+            f"{SLICE_RTOL} atol {SLICE_ATOL} (worst {worst:.3f}); cpu "
+            f"wall={time.perf_counter() - t0:.2f} s")
+    log(f"[faults] (a) in {time.perf_counter() - t_sub:.1f} s")
+    return counts, p
+
+
+def fault_matrix_runs(torch, world):
+    """(b) run_fault_matrix over bench_faults.py's rates; returns K1's
+    launches."""
+    import numpy as np
+
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.fl import (FaultConfig, GuardConfig, SimConfig,
+                                run_fault_matrix)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    t_sub = time.perf_counter()
+    cfg = SimConfig(rounds=T, local_iters=5, batch_size=10, eval_every=4,
+                    faults=FaultConfig(**FAULT_KW, corrupt_mode="nan"))
+    policy = RandomScheme(p_bar=FAULT_P, num_clients=K)
+    args = (mlp_loss, mlp_accuracy)
+    zero_k1(k1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run_fault_matrix(world["params"], *args, world["clients"],
+                           world["test"], policy, world["h"], world["cell"],
+                           cfg, FAULT_RATES, guard=GuardConfig(**GUARD_KW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = np.asarray(k1_counts(k1))
+    lanes = 2 * len(FAULT_RATES)
+    if tuple(counts) != (lanes * T, 0, len(FAULT_RATES) * T):
+        raise AssertionError(f"fault matrix: K1 launches {tuple(counts)}")
+    t0 = time.perf_counter()
+    ref = run_fault_matrix(world["c_params"], *args, world["c_clients"],
+                           world["c_test"], policy, world["h"].cpu(),
+                           world["cell"], cfg, FAULT_RATES,
+                           guard=GuardConfig(**GUARD_KW), device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    worst = 0.0
+    for name in ("unguarded", "guarded"):
+        for field in ("delivered", "finite_final"):
+            np.testing.assert_array_equal(getattr(got, field)[name],
+                                          getattr(ref, field)[name],
+                                          err_msg=f"{name} {field}")
+        for field in ("energy", "acc", "loss"):
+            worst = max(worst, held_floats(np, getattr(got, field)[name],
+                                           getattr(ref, field)[name],
+                                           f"{name} {field}"))
+    mass = got.delivered["guarded"].sum(axis=(1, 2))
+    if not (got.finite_final["guarded"].all()
+            and got.finite_final["unguarded"][0]
+            and (np.diff(mass) <= 0).all()):
+        raise AssertionError(f"fault matrix: guarded finite "
+                             f"{got.finite_final['guarded']}, unguarded "
+                             f"{got.finite_final['unguarded']}, delivered "
+                             f"mass {mass}")
+    for r, rate in enumerate(got.rates):
+        log(f"[faults] matrix rate {rate:.2f}: delivered "
+            f"{int(mass[r])}, final acc guarded "
+            f"{got.acc['guarded'][r, -1]:.4f} / unguarded "
+            f"{got.acc['unguarded'][r, -1]:.4f}, finite guarded "
+            f"{bool(got.finite_final['guarded'][r])} / unguarded "
+            f"{bool(got.finite_final['unguarded'][r])}, energy guarded "
+            f"{got.energy['guarded'][r].sum():.4f} J")
+    log(f"[faults] (b) run_fault_matrix, {lanes} lanes ({len(FAULT_RATES)} "
+        f"rates x unguarded/guarded): card {wall:.2f} s "
+        f"({wall / lanes:.3f} s a lane), cpu {cpu_wall:.2f} s "
+        f"({cpu_wall / lanes:.3f} s a lane); card = CPU on every lane "
+        f"(worst {worst:.3f}); delivered mass falls with the rate; K1 "
+        f"launches={int(counts[0])}, weighted={int(counts[2])}; (b) in "
+        f"{time.perf_counter() - t_sub:.1f} s")
+    return counts
+
+
+def matrix_world(torch, n_train, rounds, lanes, severities=None):
+    """benchmarks' matrix worlds on the card: MNIST-like data from key 0
+    (1,000 test examples), d = 5 shards (or one set a severity, padded to
+    a shared cap), the full MLP from key 4."""
+    from repro_torch import random as jr
+    from repro_torch.core import CellConfig
+    from repro_torch.core.channel import channel_gains, sample_positions
+    from repro_torch.data import (from_client_datasets, make_mnist_like,
+                                  shard_noniid)
+    from repro_torch.models.small import init_mlp
+
+    train, test = make_mnist_like(jr.PRNGKey(0), n_train=n_train,
+                                  n_test=1_000)
+    cell = CellConfig(num_clients=K)
+    w = dict(test=test, cell=cell, params=init_mlp(jr.PRNGKey(4)))
+    if severities is None:   # bench_engine.py: build() and lane_gains()
+        w["clients"] = shard_noniid(jr.PRNGKey(1), train, K, d=5)
+        w["h"] = torch.stack([channel_gains(
+            jr.PRNGKey(200 + s, device="cuda"),
+            sample_positions(jr.PRNGKey(100 + s, device="cuda"), cell),
+            rounds).T for s in range(lanes)])
+    else:                    # fig6_7_schemes.py: build_matrix_world()
+        sev = [shard_noniid(jr.PRNGKey(1), train, K, d=d)
+               for d in severities]
+        pad = max(int(c.y.shape[0]) for cs in sev for c in cs)
+        w["stores"] = [from_client_datasets(cs, pad_to=pad) for cs in sev]
+        w["severity_clients"] = sev
+        pos = sample_positions(jr.PRNGKey(2, device="cuda"), cell)
+        w["h"] = torch.stack([channel_gains(jr.PRNGKey(3 + s, device="cuda"),
+                                            pos, rounds).T
+                              for s in range(lanes)])
+    return w
+
+
+def on_cpu(w):
+    """The card world's tensors on the host CPU."""
+    from repro_torch.data import Dataset, DeviceDataStore
+
+    def ds(d):
+        return Dataset(d.x.cpu(), d.y.cpu(), d.num_classes)
+
+    out = dict(test=ds(w["test"]), h=w["h"].cpu(),
+               params=[{k: v.cpu() for k, v in layer.items()}
+                       for layer in w["params"]])
+    if "clients" in w:
+        out["clients"] = [ds(c) for c in w["clients"]]
+    if "stores" in w:
+        out["stores"] = [DeviceDataStore(*(t.cpu() for t in s))
+                         for s in w["stores"]]
+    return out
+
+
+def held_matrix(np, got, ref, fields) -> float:
+    np.testing.assert_array_equal(got.participation, ref.participation)
+    np.testing.assert_array_equal(got.eval_rounds, ref.eval_rounds)
+    return max(held_floats(np, getattr(got, f), getattr(ref, f), f)
+               for f in fields)
+
+
+def solved_once(fn):
+    """A state-free policy that solves each distinct ``(t, h)`` once (its
+    answer depends on them alone): the matched panel's probe and the dense
+    and sparse matrices on the card then share each seed lane's (P1')
+    solve, with the bits of solving it again."""
+    cache = {}
+
+    def memo(t, h_t, state=None):
+        key = (h_t.device.type, tuple(h_t.shape),
+               h_t.cpu().numpy().tobytes(), repr(t.tolist()
+                                                 if hasattr(t, "tolist")
+                                                 else t))
+        if key not in cache:
+            cache[key] = fn(t, h_t, state)
+        return cache[key]
+
+    memo.state_free = True
+    return memo
+
+
+def scheme_matrix_runs(torch):
+    """(c) run_scheme_matrix at fig6_7_schemes.py's fig6_k10 setting, dense
+    and sparse on the card, dense on the CPU; returns K1's launches."""
+    import numpy as np
+
+    from repro_torch.core import ProblemSpec
+    from repro_torch.core.selection import (age_aware_policy,
+                                            average_participants,
+                                            csma_policy, online_policy,
+                                            random_policy)
+    from repro_torch.fl import (AggregatorConfig, SchemeSpec, SimConfig,
+                                make_runner, run_scheme_matrix,
+                                train_trace_count)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    t_sub = time.perf_counter()
+    w = matrix_world(torch, SCHEME_TRAIN, SCHEME_T, len(SCHEME_SEEDS),
+                     SEVERITIES)
+    cell = w["cell"]
+    spec = ProblemSpec(cell=cell, rho=0.05, num_rounds=SCHEME_T)
+    # fig6_7_schemes.py: matched_panel
+    proposed = solved_once(online_policy(spec))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg = average_participants(proposed, w["h"][0])
+    solve_s = time.perf_counter() - t0
+    k, p_bar = max(1, round(avg)), min(avg / K, 1.0)
+    panel = [
+        SchemeSpec("paper", proposed, AggregatorConfig(kind="paper")),
+        SchemeSpec("fedasync-hinge", random_policy(p_bar, K),
+                   AggregatorConfig(kind="fedasync", staleness_fn="hinge")),
+        SchemeSpec("fedasync-poly", random_policy(p_bar, K),
+                   AggregatorConfig(kind="fedasync", staleness_fn="poly")),
+        SchemeSpec("csmaafl", csma_policy(k, K),
+                   AggregatorConfig(kind="csmaafl")),
+        SchemeSpec("age-aware", age_aware_policy(k, K),
+                   AggregatorConfig(kind="age"))]
+    cfg = SimConfig(rounds=SCHEME_T, local_iters=5, batch_size=10, lr=0.01,
+                    eval_every=max(SCHEME_T // 8, 1), **SPARSE_KW)
+    lanes = len(SEVERITIES) * len(panel) * len(SCHEME_SEEDS)
+    log(f"[schemes] fig6_k10: K={K}, {SCHEME_TRAIN} train examples, "
+        f"severities d={list(SEVERITIES)} padded to "
+        f"{w['stores'][0].x.shape[1]}, T={SCHEME_T}, seeds "
+        f"{list(SCHEME_SEEDS)}; matched avg={avg:.4f} clients/round, k={k} "
+        f"(solve {solve_s:.2f} s); {lanes} lanes a path, the (P1') solve "
+        f"of a seed lane shared by the matched panel and both paths")
+    args = (w["params"], mlp_loss, mlp_accuracy, w["stores"], w["test"],
+            panel, w["h"], cell, cfg, SCHEME_SEEDS)
+    card, counts = {}, np.zeros(3, int)
+    for path in ("dense", "sparse"):
+        built = train_trace_count()
+        zero_k1(k1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card[path] = run_scheme_matrix(*args, participation=path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = np.asarray(k1_counts(k1))
+        counts += n
+        built = train_trace_count() - built
+        if tuple(n) != (lanes * SCHEME_T, 0, lanes * SCHEME_T) or \
+                built != (path == "sparse"):
+            raise AssertionError(f"scheme matrix {path}: K1 launches "
+                                 f"{tuple(n)}, phase B built {built} times")
+        res = card[path]
+        log(f"[schemes] {path:6s} card: {wall:.2f} s ({wall / lanes:.3f} s "
+            f"a lane), final acc by scheme (mean over lanes) "
+            + ", ".join(f"{s} {res.acc[:, i, :, -1].mean():.4f}"
+                        for i, s in enumerate(res.schemes))
+            + f"; K1 launches={n[0]} (weighted {n[2]})"
+            + (f"; phase B built once (train_trace_count() +{built})"
+               if path == "sparse" else ""))
+    fields = ("energy", "energy_timeline", "acc", "loss")
+    worst = held_matrix(np, card["sparse"], card["dense"], fields)
+    log(f"[schemes] sparse = dense on the card: masks equal, floats within "
+        f"rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst {worst:.3f})")
+    # one lane against single runs: the dense engine (the same bits) and
+    # the sparse one (last_tx too)
+    v, l, s = 1, 3, 1
+    zero_k1(k1)
+    single = {}
+    for path in ("dense", "sparse"):
+        single[path] = make_runner(
+            mlp_loss, mlp_accuracy, w["severity_clients"][v], w["test"],
+            panel[l].policy, cell, dataclasses.replace(
+                cfg, aggregator=panel[l].aggregator, participation=path))(
+            w["params"], w["h"][s], seed=SCHEME_SEEDS[s])
+    counts += np.asarray(k1_counts(k1))
+    d, one = card["dense"], single["dense"]
+    np.testing.assert_array_equal(d.participation[v, l, s],
+                                  one.participation)
+    worst = max(held_floats(np, a[v, l, s], getattr(one, field), field)
+                for field, a in (("test_acc", d.acc), ("test_loss", d.loss),
+                                 ("energy_per_client", d.energy)))
+    worst_sp = held_to(np, single["sparse"], one)
+    log(f"[schemes] lane (d={SEVERITIES[v]}, {panel[l].name}, seed "
+        f"{SCHEME_SEEDS[s]}) = a single make_runner run: masks equal, "
+        f"floats within tolerance (worst {worst:.3f}); its sparse run = its "
+        f"dense run: masks, last_tx, eval rounds equal, floats (worst "
+        f"{worst_sp:.3f})")
+    c = on_cpu(w)
+    t0 = time.perf_counter()
+    ref = run_scheme_matrix(c["params"], mlp_loss, mlp_accuracy,
+                            c["stores"], c["test"], panel, c["h"], cell, cfg,
+                            SCHEME_SEEDS, participation="dense", device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    worst = held_matrix(np, card["dense"], ref, fields)
+    log(f"[schemes] dense cpu: {cpu_wall:.2f} s ({cpu_wall / lanes:.3f} s "
+        f"a lane); card = CPU on all {lanes} lanes: masks equal, floats "
+        f"within rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst {worst:.3f}); "
+        f"(c) in {time.perf_counter() - t_sub:.1f} s")
+    return counts
+
+
+def engine_matrix_runs(torch):
+    """(d) run_seed_matrix and run_scenario_matrix at bench_engine.py's
+    K 10 setting, card against CPU; returns K1's launches."""
+    import numpy as np
+
+    from repro_torch.core import ProblemSpec
+    from repro_torch.core.selection import (AgeBasedScheme, GreedyScheme,
+                                            ProposedOnline, RandomScheme,
+                                            average_participants)
+    from repro_torch.fl import (SimConfig, run_scenario_matrix,
+                                run_seed_matrix)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    t_sub = time.perf_counter()
+    w = matrix_world(torch, ENGINE_TRAIN, ENGINE_T, ENGINE_LANES)
+    c = on_cpu(w)
+    cell = w["cell"]
+    spec = ProblemSpec(cell=cell, rho=0.05, num_rounds=ENGINE_T)
+    cfg = SimConfig(rounds=ENGINE_T, local_iters=5, batch_size=10,
+                    eval_every=max(ENGINE_T // 4, 1), eval_batch=512)
+    avg = average_participants(ProposedOnline(spec), w["h"][0])
+    k = max(1, round(avg))
+    seeds = list(range(ENGINE_LANES))
+    fields = ("energy", "e_round", "acc", "loss")
+    counts = np.zeros(3, int)
+    runs = [(p.name, p) for p in (RandomScheme(min(avg / K, 1.0), K),
+                                  GreedyScheme(k, K), AgeBasedScheme(k, K))]
+    runs.append((f"proposed rho {list(ENGINE_RHOS)}", None))
+    for name, policy in runs:
+        zero_k1(k1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if policy is None:
+            got = run_scenario_matrix(w["params"], mlp_loss, mlp_accuracy,
+                                      w["clients"], w["test"], spec,
+                                      w["h"][:1], ENGINE_RHOS, cfg, [0])
+        else:
+            got = run_seed_matrix(w["params"], mlp_loss, mlp_accuracy,
+                                  w["clients"], w["test"], policy, w["h"],
+                                  cell, cfg, seeds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = np.asarray(k1_counts(k1))
+        lanes = int(np.prod(got.participation.shape[:-2]))
+        if tuple(n) != (lanes * ENGINE_T, 0, 0):
+            raise AssertionError(f"{name}: K1 launches {tuple(n)}")
+        counts += n
+        t0 = time.perf_counter()
+        if policy is None:
+            ref = run_scenario_matrix(c["params"], mlp_loss, mlp_accuracy,
+                                      c["clients"], c["test"], spec,
+                                      c["h"][:1], ENGINE_RHOS, cfg, [0],
+                                      device="cpu")
+        else:
+            ref = run_seed_matrix(c["params"], mlp_loss, mlp_accuracy,
+                                  c["clients"], c["test"], policy, c["h"],
+                                  cell, cfg, seeds, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        worst = held_matrix(np, got, ref, fields)
+        log(f"[engine-matrix] {name:28s} {lanes} lanes "
+            f"{tuple(got.participation.shape[:-2])}: card {wall:.2f} s, cpu "
+            f"{cpu_wall:.2f} s; final acc {got.acc[..., -1].ravel()}; card "
+            f"= CPU (worst {worst:.3f}); K1 launches={n[0]}")
+    log(f"[engine-matrix] matched avg={avg:.4f}, k={k}; (d) in "
+        f"{time.perf_counter() - t_sub:.1f} s")
+    return counts
+
+
+def faults_and_matrices(torch, world):
+    """Phase 3d: (a)-(d); returns K1's launches (plain, subset, weighted)
+    and the poisoned rows of (a)."""
+    counts, poison = fault_runs(torch, world)
+    counts = counts + fault_matrix_runs(torch, world)
+    counts = counts + scheme_matrix_runs(torch)
+    counts = counts + engine_matrix_runs(torch)
+    return counts, poison
 
 
 # ---------------------------------------------------------------------------
@@ -1776,6 +2351,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sparse = sparse_runs(torch, world) + population_sweep(torch)
     log(f"[sparse] phase 3c in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    faulty, poison = faults_and_matrices(torch, world)
+    log(f"[faults] phase 3d in {time.perf_counter() - t0:.1f} s")
+    sparse = sparse + faulty
     k1_modes = {"plain": launches + panel - panel_weighted
                 + int(sparse[0] - sparse[1] - sparse[2]),
                 "subset": int(sparse[1]),
@@ -1806,6 +2385,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/fl_aggregate.py:43",
         "launches": launches,
         "launches_by_mode": k1_modes,
+        "nonfinite_rows": poison,
         "max_abs_err": max_err,
         **timing[(K, MAIN_M, "float32")],
     }, {

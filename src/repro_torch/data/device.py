@@ -53,15 +53,18 @@ def data_stream_key(seed_or_key, device=None) -> torch.Tensor:
     return jr.fold_in(key, DATA_STREAM)
 
 
-def from_client_datasets(clients: Sequence[Dataset],
-                         device=None) -> DeviceDataStore:
+def from_client_datasets(clients: Sequence[Dataset], device=None,
+                         pad_to: int | None = None) -> DeviceDataStore:
     """Pack per-client shards into one store padded to the largest shard,
-    on ``device`` (``None`` means the card)."""
+    or to ``pad_to`` (a cap stores of several severities share), on
+    ``device`` (``None`` means the card)."""
     device = resolve_device(device)
     counts = [int(c.y.shape[0]) for c in clients]
     if min(counts) == 0:
         raise ValueError("every client shard must be non-empty")
-    cap = max(counts)
+    cap = pad_to or max(counts)
+    if cap < max(counts):
+        raise ValueError(f"pad_to={cap} < largest shard ({max(counts)})")
     sample = tuple(clients[0].x.shape[1:])
     x = torch.zeros((len(clients), cap) + sample, dtype=clients[0].x.dtype,
                     device=device)

@@ -1,13 +1,22 @@
 """FL runtime: the eager simulation engine on the device data store, the
-participant-centric sparse engine, and the aggregators (eq. 3, guarded,
-participant-subset and scheme-weighted)."""
+participant-centric sparse engine, the fault processes, the aggregators
+(eq. 3, guarded, participant-subset and scheme-weighted) and the seed,
+scenario, fault and scheme matrices."""
 from . import sparse
-from .engine import (SimConfig, SimResult, apply_round_decision,
-                     check_ported, grant_forced_bandwidth, make_local_train,
-                     make_runner, resolve_data_path)
-from .faults import GuardConfig
-from .sparse import make_sparse_runner, resolve_participation
+from .engine import (MatrixResult, SimConfig, SimResult,
+                     apply_round_decision, check_ported,
+                     grant_forced_bandwidth, make_local_train, make_runner,
+                     resolve_data_path, run_scenario_matrix, run_seed_matrix)
+from .faults import (FaultConfig, FaultMatrixResult, FaultOutcome,
+                     FaultParams, FaultState, GuardConfig, apply_faults,
+                     corrupt_deltas, fault_key, init_fault_state,
+                     run_fault_matrix, scale_params)
+from .schemes import (SchemeMatrixResult, SchemeSpec, default_scheme_panel,
+                      run_scheme_matrix, stack_stores)
 from .simulator import run_simulation
+from .sparse import (ParticipationTrace, build_participation_program,
+                     build_sparse_train_program, make_sparse_runner,
+                     resolve_participation, train_trace_count)
 from .state import (AggParams, AggregatorConfig, FLState, ParamLayout,
                     broadcast_to_participants, finite_rows, guard_weights,
                     guarded_aggregate, guarded_subset_aggregate,
@@ -19,14 +28,21 @@ from .state import (AggParams, AggregatorConfig, FLState, ParamLayout,
 __all__ = ["SimConfig", "SimResult", "apply_round_decision", "check_ported",
            "grant_forced_bandwidth", "make_local_train", "make_runner",
            "run_simulation", "resolve_data_path", "FLState", "ParamLayout",
+           "run_seed_matrix", "run_scenario_matrix", "MatrixResult",
            # participant-centric sparse rounds
            "sparse", "make_sparse_runner", "resolve_participation",
+           "build_participation_program", "build_sparse_train_program",
+           "ParticipationTrace", "train_trace_count",
            "broadcast_to_participants", "init_fl_state", "masked_aggregate",
            "pseudo_gradients", "subset_aggregate",
-           # robustness layer: the server-side guards
-           "GuardConfig", "finite_rows", "update_norms", "guard_weights",
-           "guarded_aggregate", "guarded_subset_aggregate",
-           # the scheme aggregators
-           "AggParams", "AggregatorConfig", "scheme_aggregate",
-           "scheme_subset_aggregate", "scheme_weights", "staleness_scale",
-           "weighted_aggregate"]
+           # robustness layer: fault processes and server-side guards
+           "FaultConfig", "FaultParams", "FaultState", "FaultOutcome",
+           "GuardConfig", "FaultMatrixResult", "apply_faults",
+           "corrupt_deltas", "fault_key", "init_fault_state", "scale_params",
+           "run_fault_matrix", "finite_rows", "update_norms",
+           "guard_weights", "guarded_aggregate", "guarded_subset_aggregate",
+           # the scheme aggregators and the scheme matrix
+           "AggParams", "AggregatorConfig", "SchemeMatrixResult",
+           "SchemeSpec", "default_scheme_panel", "run_scheme_matrix",
+           "stack_stores", "scheme_aggregate", "scheme_subset_aggregate",
+           "scheme_weights", "staleness_scale", "weighted_aggregate"]

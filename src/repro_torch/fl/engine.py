@@ -22,20 +22,32 @@ package's ``lax.scan`` and host-loop engines collapse into this one loop.
   otherwise ``masked_aggregate``, K1's plain mode.  The scheme weights read
   the staleness ledger before the broadcast and the policy's nominal
   probabilities, from before the aging boost.
+* **faults** — with ``cfg.faults`` set, :func:`repro_torch.fl.faults.
+  apply_faults` runs after each round's decision on its salted streams: the
+  energy ledger takes its retry-inclusive energy, and the *delivered* set
+  takes the mask's place in the participants-mode keep, every aggregator,
+  the staleness ledger and the broadcast; :func:`~repro_torch.fl.faults.
+  corrupt_deltas` poisons the flagged rows before aggregation.  The
+  participation masks are the clean run's.
 
 Ported: ``data_path`` ``"device"`` (and ``"auto"``, which resolves to it),
 both ``data_stream`` values, every ``participation`` value (``"sparse"``,
 and ``"auto"`` where its preconditions hold, dispatch to
 :mod:`repro_torch.fl.sparse` as JAX's ``make_runner`` does), both
 ``local_mode`` values, ``max_staleness``, ``aging_boost``, ``guards``,
-``aggregator``, ``participant_bucket`` and ``overflow`` (read by the sparse
-runner only).  ``faults``, ``metrics``, ``eval_mode="replay"``,
+``aggregator``, ``faults``, ``participant_bucket`` and ``overflow`` (read
+by the sparse runner only).  ``metrics``, ``eval_mode="replay"``,
 ``checkpoint_every``, ``stream_chunk`` and the ``"stream"`` and
 ``"prestack"`` data paths raise ``NotImplementedError`` naming the field.
+
+The matrix sweeps (:func:`run_seed_matrix`, :func:`run_scenario_matrix`)
+run their lanes one after another through the dense runner, the lanes of
+JAX's ``vmap`` of the same program.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -44,11 +56,14 @@ import torch
 from .. import random as jr
 from .. import resolve_device
 from ..core.channel import CellConfig, rate_nats
-from ..core.selection import as_policy_fn
-from ..data.device import (data_stream_key, from_client_datasets,
-                           sample_round, sample_round_client_stream)
+from ..core.selection import _schedule_policy, as_policy_fn, online_policy
+from ..data.device import (DeviceDataStore, data_stream_key,
+                           from_client_datasets, sample_round,
+                           sample_round_client_stream)
 from ..data.synthetic import Dataset
+from ..obs.telemetry import emit_run_manifest, get_telemetry
 from ..optim import Optimizer, sgd
+from .faults import apply_faults, corrupt_deltas, init_fault_state
 from .state import (FLState, broadcast_to_participants, guarded_aggregate,
                     init_fl_state, masked_aggregate, pseudo_gradients,
                     scheme_aggregate)
@@ -74,7 +89,7 @@ class SimConfig:
     participation: str = "dense"
     participant_bucket: int | None = None
     data_stream: str = "round"
-    faults: Any = None
+    faults: Any = None        # a repro_torch.fl.faults.FaultConfig
     guards: Any = None        # a repro_torch.fl.faults.GuardConfig
     aggregator: Any = None    # a repro_torch.fl.state.AggregatorConfig
     eval_mode: str = "inscan"
@@ -87,7 +102,6 @@ class SimConfig:
 _PORTED = {
     "data_path": ("auto", "device"),
     "eval_mode": ("inscan",),
-    "faults": (None,),
     "metrics": (None,),
     "checkpoint_every": (None,),
     "stream_chunk": (256,),
@@ -134,6 +148,10 @@ class SimResult(NamedTuple):
     energy_timeline: np.ndarray    # [rounds] cumulative total energy
     participation: np.ndarray      # [rounds, K] realized decision masks
     state: FLState
+    # with cfg.faults set, float32 [rounds, K]: the updates that landed at
+    # the server, and those of them that were corrupted; None on clean runs
+    delivered: np.ndarray | None = None
+    corrupted: np.ndarray | None = None
 
 
 def grant_forced_bandwidth(w: torch.Tensor, forced: torch.Tensor,
@@ -213,85 +231,159 @@ def make_local_train(loss_fn: Callable, opt: Optimizer):
 
 
 def make_runner(loss_fn: Callable, acc_fn: Callable,
-                client_data: Sequence[Dataset], test_ds: Dataset, policy,
-                cell: CellConfig, cfg: SimConfig,
+                client_data: Sequence[Dataset] | DeviceDataStore,
+                test_ds: Dataset, policy, cell: CellConfig, cfg: SimConfig,
                 opt: Optimizer | None = None, device=None) -> Callable:
     """Build the device data store once and return
     ``runner(params, h_all, seed=None) -> SimResult``.
 
-    ``h_all`` is ``[K, rounds]``; ``device=None`` means the card.  Where
-    ``cfg.participation`` resolves to ``"sparse"``
-    (:func:`repro_torch.fl.sparse.resolve_participation`) the runner is
-    :func:`repro_torch.fl.sparse.make_sparse_runner`'s.
+    ``h_all`` is ``[K, rounds]``; ``device=None`` means the card;
+    ``client_data`` is a list of shards or a :class:`DeviceDataStore`
+    already on ``device``.  Where ``cfg.participation`` resolves to
+    ``"sparse"`` (:func:`repro_torch.fl.sparse.resolve_participation`) the
+    runner is :func:`repro_torch.fl.sparse.make_sparse_runner`'s, else the
+    dense engine's.
     """
     from .sparse import make_sparse_runner, resolve_participation
 
     policy_fn = as_policy_fn(policy)
     path = resolve_data_path(cfg)
-    K = len(client_data)
+    K = _num_clients(client_data)
     if resolve_participation(cfg, policy_fn, path, K) == "sparse":
         # opt passed as given: the sparse runner keys its phase-B cache on
         # the default optimizer's (kind, lr)
         return make_sparse_runner(loss_fn, acc_fn, client_data, test_ds,
                                   policy_fn, cell, cfg, opt, device=device)
+    return _dense_runner(loss_fn, acc_fn, client_data, test_ds, policy_fn,
+                         cell, cfg, opt, device=device)
+
+
+def _num_clients(client_data) -> int:
+    return (client_data.num_clients
+            if isinstance(client_data, DeviceDataStore) else len(client_data))
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (a.index if a.index is not None else current) == \
+        (b.index if b.index is not None else current)
+
+
+def _as_store(client_data, device: torch.device) -> DeviceDataStore:
+    """A list of shards packed on ``device``, or a store already there
+    (never copied)."""
+    if not isinstance(client_data, DeviceDataStore):
+        return from_client_datasets(client_data, device=device)
+    if not _same_device(client_data.x.device, device):
+        raise ValueError(f"the data store lies on {client_data.x.device}, "
+                         f"the runner on {device}; move it first")
+    return client_data
+
+
+def solve_once(policy, h_all: torch.Tensor):
+    """``policy`` as a policy function; a state-free one is solved here,
+    once for all rounds of ``h_all: [K, T]``, and replayed: lanes that
+    share ``h_all`` then share the solve, with the bits of solving it
+    again."""
+    fn = as_policy_fn(policy)
+    if not getattr(fn, "state_free", False):
+        return fn
+    T = h_all.shape[1]
+    probs, w = fn(torch.arange(T, device=h_all.device), h_all.T, None)
+    return _schedule_policy(types.SimpleNamespace(p=probs.T, w=w.T))
+
+
+def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
+                  test_ds: Dataset, policy, cell: CellConfig, cfg: SimConfig,
+                  opt: Optimizer | None = None, device=None) -> Callable:
+    """The dense engine's ``runner(params, h_all, seed=None,
+    fault_params=None, agg_params=None) -> SimResult``.  The two keywords
+    replace ``cfg.faults.params()`` and ``cfg.aggregator.params()`` for one
+    run: what the matrix sweeps sweep."""
+    policy_fn = as_policy_fn(policy)
+    resolve_data_path(cfg)
     check_ported(cfg)
     device = resolve_device(device)
+    store = _as_store(client_data, device)
+    K = store.num_clients
     T = cfg.rounds
     hoist = getattr(policy_fn, "state_free", False)
+    faults = cfg.faults
     guards = cfg.guards if cfg.guards is not None and cfg.guards.active \
-        else None
-    ap = cfg.aggregator.params(device) if cfg.aggregator is not None \
         else None
     opt = opt or sgd(cfg.lr)
     local_train = make_local_train(loss_fn, opt)
     sample = (sample_round_client_stream if cfg.data_stream == "client"
               else sample_round)
-    store = from_client_datasets(client_data, device=device)
     data_key = data_stream_key(cfg.seed, device=device)
     test_x = test_ds.x[: cfg.eval_batch].to(device)
     test_y = test_ds.y[: cfg.eval_batch].to(device)
 
     @torch.no_grad()
-    def runner(params, h_all, seed: int | None = None) -> SimResult:
+    def run(params, h_all, seed: int | None = None, fault_params=None,
+            agg_params=None) -> tuple[SimResult, np.ndarray]:
         key = jr.PRNGKey(cfg.seed if seed is None else seed, device=device)
         h_rounds = torch.as_tensor(h_all, dtype=torch.float32).to(device).T
         state = init_fl_state(params, K, device=device)
         layout = state.layout
+        ap = None
+        if cfg.aggregator is not None:
+            ap = (cfg.aggregator.params(device) if agg_params is None
+                  else agg_params)
+        if faults is not None:
+            fp = faults.params(device) if fault_params is None \
+                else fault_params
+            fstate = init_fault_state(K, device)
         if hoist:   # every round's policy (the (P1') solves) at once
             probs_all, w_all = policy_fn(torch.arange(T, device=device),
                                          h_rounds, None)
         energy = torch.zeros(K, dtype=torch.float32, device=device)
         masks, e_rounds, accs, losses, eval_rounds = [], [], [], [], []
+        delivers, corrupts = [], []
         for t in range(T):
             h_t = h_rounds[t]
             probs, w = ((probs_all[t], w_all[t]) if hoist
                         else policy_fn(t, h_t, state))
             mask, _, w, e_round = apply_round_decision(
                 probs, w, t, h_t, state, key, cfg, cell, K)
+            delivered = mask
+            if faults is not None:   # what lands, on the salted streams
+                out, fstate = apply_faults(t, key, mask, e_round, fstate,
+                                           fp, faults)
+                delivered, e_round = out.delivered, out.e_round
+                delivers.append(delivered)
+                corrupts.append(out.corrupt)
             energy = energy + e_round
             xb, yb = sample(store, data_key, t, cfg.local_iters,
                             cfg.batch_size)
             client = local_train(state.client_params, xb, yb, layout)
             if cfg.local_mode == "participants":
-                # only transmitting clients move; the rest keep client ==
-                # anchor, so their pseudo-gradient stays exactly zero
-                client = torch.where(mask.bool()[:, None], client,
+                # only clients whose update lands move; the rest keep
+                # client == anchor, so their pseudo-gradient stays zero
+                client = torch.where(delivered.bool()[:, None], client,
                                      state.client_params)
             state = state._replace(client_params=client)
             deltas = pseudo_gradients(state)
+            if faults is not None:
+                deltas = corrupt_deltas(deltas, out.corrupt, fp, faults)
             if ap is not None or guards is not None:
                 staleness = state.round - state.last_tx
             if ap is not None:   # probs: nominal, before the aging boost
                 new_global = scheme_aggregate(
-                    state.global_params, deltas, mask, K, staleness, probs,
-                    ap, guards=guards)
+                    state.global_params, deltas, delivered, K, staleness,
+                    probs, ap, guards=guards)
             elif guards is not None:
                 new_global = guarded_aggregate(state.global_params, deltas,
-                                               mask, K, staleness, guards)
+                                               delivered, K, staleness,
+                                               guards)
             else:
                 new_global = masked_aggregate(state.global_params, deltas,
-                                              mask, K)
-            state = broadcast_to_participants(state, new_global, mask)
+                                              delivered, K)
+            state = broadcast_to_participants(state, new_global, delivered)
             if t % cfg.eval_every == 0 or t == T - 1:
                 g = layout.unflatten(state.global_params)
                 accs.append(acc_fn(g, test_x, test_y))
@@ -300,6 +392,11 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
             masks.append(mask)
             e_rounds.append(e_round)
         e_round_all = torch.stack(e_rounds).cpu().numpy()
+
+        def trace(rows):
+            return (torch.stack(rows).to(torch.float32).cpu().numpy()
+                    if faults is not None else None)
+
         return SimResult(
             test_acc=torch.stack(accs).cpu().numpy(),
             test_loss=torch.stack(losses).cpu().numpy(),
@@ -307,6 +404,110 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
             energy_per_client=energy.cpu().numpy(),
             energy_timeline=np.cumsum(e_round_all.sum(axis=1)),
             participation=torch.stack(masks).cpu().numpy(),
-            state=state)
+            state=state, delivered=trace(delivers),
+            corrupted=trace(corrupts)), e_round_all
 
+    def runner(params, h_all, seed: int | None = None, fault_params=None,
+               agg_params=None) -> SimResult:
+        return run(params, h_all, seed, fault_params, agg_params)[0]
+
+    # the run with its per-round energy [T, K] beside it (the matrices')
+    runner.with_e_round = run
     return runner
+
+
+# ---------------------------------------------------------------------------
+# scenario fan-out: lanes over seeds and ρ
+# ---------------------------------------------------------------------------
+
+
+class MatrixResult(NamedTuple):
+    """Stacked lane results; leading axes ``[R, S, ...]`` for
+    :func:`run_scenario_matrix`, ``[S, ...]`` for :func:`run_seed_matrix`."""
+
+    acc: np.ndarray            # [..., n_evals]
+    loss: np.ndarray           # [..., n_evals]
+    eval_rounds: np.ndarray    # [n_evals]
+    energy: np.ndarray         # [..., K] cumulative per-client Joules
+    e_round: np.ndarray        # [..., T, K]
+    participation: np.ndarray  # [..., T, K]
+    metrics: Any = None        # the metrics taps are not ported: None
+
+
+def _matrix_result(lanes: list, shape: tuple) -> MatrixResult:
+    """Stack ``(SimResult, e_round)`` lanes, lane-major, under the leading
+    axes ``shape``."""
+    def stack(rows):
+        a = np.stack(rows)
+        return a.reshape(shape + a.shape[1:])
+
+    return MatrixResult(
+        acc=stack([r.test_acc for r, _ in lanes]),
+        loss=stack([r.test_loss for r, _ in lanes]),
+        eval_rounds=lanes[0][0].eval_rounds,
+        energy=stack([r.energy_per_client for r, _ in lanes]),
+        e_round=stack([e for _, e in lanes]),
+        participation=stack([r.participation for r, _ in lanes]))
+
+
+def _lanes_check(h_stack, seeds, cfg: SimConfig) -> torch.Tensor:
+    h = torch.as_tensor(h_stack, dtype=torch.float32)
+    if h.dim() != 3 or h.shape[0] != len(seeds):
+        raise ValueError(f"h_stack must be [S, K, T] with one lane per "
+                         f"seed: {tuple(h.shape)} for {len(seeds)} seeds")
+    if h.shape[2] != cfg.rounds:
+        raise ValueError(f"h_stack has {h.shape[2]} rounds, "
+                         f"cfg.rounds={cfg.rounds}")
+    return h
+
+
+def run_seed_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
+                    policy, h_stack, cell: CellConfig, cfg: SimConfig,
+                    seeds: Sequence[int], opt: Optimizer | None = None,
+                    device=None) -> MatrixResult:
+    """One policy over scenario lanes: ``h_stack [S, K, T]`` holds one
+    channel realization a lane, ``seeds`` each lane's participation stream.
+    The data (one store) and its minibatch stream (``cfg.seed``) are shared
+    by every lane.  Each lane is one run of the dense engine on ``device``
+    (``None`` means the card); leading axis ``[S]``."""
+    device = resolve_device(device)
+    h = _lanes_check(h_stack, seeds, cfg)
+    store = _as_store(client_data, device)
+    runner = _dense_runner(loss_fn, acc_fn, store, test_ds, policy, cell,
+                           cfg, opt, device=device)
+    emit_run_manifest("run_seed_matrix", cfg,
+                      extra={"lanes": len(seeds),
+                             "num_clients": store.num_clients})
+    with get_telemetry().span("seed_matrix.execute"):
+        lanes = [runner.with_e_round(init_params, h[s], seed=int(seed))
+                 for s, seed in enumerate(seeds)]
+    return _matrix_result(lanes, (len(seeds),))
+
+
+def run_scenario_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
+                        spec, h_stack, rhos: Sequence[float],
+                        cfg: SimConfig, seeds: Sequence[int],
+                        opt: Optimizer | None = None,
+                        device=None) -> MatrixResult:
+    """ρ × lane sweep of the paper's online scheme: lane ``(r, s)`` runs
+    ``online_policy(spec, rho=rhos[r])`` (ρ as a float32 tensor, as JAX
+    traces it) on ``h_stack[s]`` with participation seed ``seeds[s]``;
+    leading axes ``[R, S]``.  Sweep K by calling once per client count."""
+    check_ported(cfg)
+    device = resolve_device(device)
+    h = _lanes_check(h_stack, seeds, cfg)
+    store = _as_store(client_data, device)
+    emit_run_manifest("run_scenario_matrix", cfg,
+                      extra={"rhos": len(rhos), "lanes": len(seeds),
+                             "num_clients": store.num_clients})
+    lanes = []
+    with get_telemetry().span("scenario_matrix.execute"):
+        for rho in rhos:
+            rho_t = torch.tensor(float(rho), dtype=torch.float32,
+                                 device=device)
+            runner = _dense_runner(loss_fn, acc_fn, store, test_ds,
+                                   online_policy(spec, rho=rho_t),
+                                   spec.cell, cfg, opt, device=device)
+            lanes += [runner.with_e_round(init_params, h[s], seed=int(seed))
+                      for s, seed in enumerate(seeds)]
+    return _matrix_result(lanes, (len(rhos), len(seeds)))

@@ -33,10 +33,16 @@ round it transmits.  The dense engine runs the same mode, and the two agree
 (masks bit for bit, floats to rounding); the paper's default
 ``"continuous"`` mode trains every client every round and stays dense.
 
-Not ported yet: the fault processes (``cfg.faults``) and the metrics taps
-(``cfg.metrics``), which raise ``NotImplementedError`` as on the dense
-engine; so ``delivered`` is ``valid`` and ``corrupt`` is all False, and the
-tap lanes ``forced_p`` / ``base_p`` stay ``None``.
+With ``cfg.faults`` set, phase A runs :func:`~repro_torch.fl.faults.
+apply_faults` after each round's decision, as the dense engine does: the
+compaction stays over the decision mask, the participant lanes carry what
+was delivered and corrupted, and the ``last_tx`` and anchor ledgers advance
+on delivered uploads only.  Phase B corrupts the flagged rows of its bucket
+and aggregates over the delivered ones.
+
+Not ported yet: the metrics taps (``cfg.metrics``), which raise
+``NotImplementedError`` as on the dense engine, so the tap lanes
+``forced_p`` / ``base_p`` stay ``None``.
 """
 from __future__ import annotations
 
@@ -56,8 +62,9 @@ from ..data.device import (DeviceDataStore, data_stream_key,
 from ..data.synthetic import Dataset
 from ..obs.telemetry import get_telemetry
 from ..optim import Optimizer, sgd
-from .engine import (SimResult, apply_round_decision, check_ported,
-                     make_local_train)
+from .engine import (SimResult, _as_store, apply_round_decision,
+                     check_ported, make_local_train)
+from .faults import apply_faults, corrupt_deltas, init_fault_state
 from .state import (FLState, ParamLayout, guarded_subset_aggregate,
                     scheme_subset_aggregate, subset_aggregate)
 
@@ -105,9 +112,9 @@ class ParticipationTrace(NamedTuple):
     part_idx: torch.Tensor     # [P] int32 transmitting ids, padded with K
     valid: torch.Tensor        # [P] bool
     anchor_slot: torch.Tensor  # [P] int32 history slot of each anchor
-    e_p: torch.Tensor          # [P] f32 Joules (eq. 5)
-    delivered: torch.Tensor    # [P] bool: the upload arrived (= valid)
-    corrupt: torch.Tensor      # [P] bool: never, without faults
+    e_p: torch.Tensor          # [P] f32 Joules (eq. 5, with the retries)
+    delivered: torch.Tensor    # [P] bool: the upload survived the faults
+    corrupt: torch.Tensor      # [P] bool: delivered but poisoned
     stale: torch.Tensor        # [P] int32 staleness Δτ at transmission
     prob: torch.Tensor         # [P] f32 nominal policy prob (pre aging boost)
     n_tx: torch.Tensor         # int32 realized transmitters (overflow check)
@@ -116,21 +123,25 @@ class ParticipationTrace(NamedTuple):
     base_p: Any = None
 
 
-def _compact(mask, e_round, probs, t, last_tx, anchor_slot,
-             bucket: int) -> ParticipationTrace:
+def _compact(mask, e_round, probs, t, last_tx, anchor_slot, bucket: int,
+             delivered=None, corrupt=None) -> ParticipationTrace:
     """One round's (``[K]`` rows, ``t`` an int) or every round's (``[T, K]``
-    rows, ``t`` ``[T, 1]``) participant lanes; ``last_tx`` and
-    ``anchor_slot`` are the ledgers before the round."""
+    rows, ``t`` ``[T, 1]``) participant lanes over the decision ``mask``;
+    ``last_tx`` and ``anchor_slot`` are the ledgers before the round,
+    ``delivered`` and ``corrupt`` the fault outcomes (``None``: every
+    upload lands clean)."""
     idx, valid, n_tx = participants_from_mask(mask, bucket)
     kc = torch.clamp(idx.long(), 0, mask.shape[-1] - 1)
 
     def lane(v, fill):
         return torch.where(valid, v.gather(-1, kc), fill)
 
+    del_p = valid if delivered is None else lane(delivered > 0, False)
+    cor_p = (torch.zeros_like(valid) if corrupt is None
+             else lane(corrupt, False))
     return ParticipationTrace(
-        idx, valid, lane(anchor_slot, 0), lane(e_round, 0.0), valid,
-        torch.zeros_like(valid), torch.where(valid, t - last_tx.gather(-1, kc),
-                                             0),
+        idx, valid, lane(anchor_slot, 0), lane(e_round, 0.0), del_p, cor_p,
+        torch.where(valid, t - last_tx.gather(-1, kc), 0),
         lane(probs.to(torch.float32), 0.0), n_tx)
 
 
@@ -162,7 +173,8 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
             "(phase A carries only the (round, last_tx) ledger); policies "
             "reading trained parameters must use the dense engine")
     K = num_clients
-    full_hoist = hoist and cfg.faults is None and cfg.max_staleness is None
+    faults = cfg.faults
+    full_hoist = hoist and faults is None and cfg.max_staleness is None
     if hoist_rounds is not None:
         if hoist_rounds and not full_hoist:
             raise ValueError(
@@ -200,6 +212,9 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
 
         last_tx, anchor_slot = zeros, zeros
         energy = torch.zeros(K, dtype=torch.float32, device=dev)
+        if faults is not None:
+            fp = faults.params(dev)
+            fstate = init_fault_state(K, dev)
         rows = []
         for t in range(T):
             h_t = h_rounds[t]
@@ -208,10 +223,18 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
                         else policy_fn(t, h_t, view))
             mask, _, _, e_round = apply_round_decision(
                 probs, w, t, h_t, view, base_key, cfg, cell, K)
+            delivered = corrupt = None
+            if faults is not None:   # the dense engine's salted streams
+                out, fstate = apply_faults(t, base_key, mask, e_round,
+                                           fstate, fp, faults)
+                delivered, corrupt, e_round = (out.delivered, out.corrupt,
+                                               out.e_round)
             energy = energy + e_round
             rows.append(_compact(mask, e_round, probs, t, last_tx,
-                                 anchor_slot, bucket))
-            fire = mask > 0
+                                 anchor_slot, bucket, delivered, corrupt))
+            # the ledgers advance on delivered uploads: a lost one's
+            # staleness keeps growing
+            fire = (mask if delivered is None else delivered) > 0
             last_tx = torch.where(fire, t, last_tx)
             anchor_slot = torch.where(fire, t + 1, anchor_slot)
         tr = ParticipationTrace(*(None if lanes[0] is None
@@ -238,15 +261,16 @@ def _train_cache_key(cfg, opt_token, loss_fn, acc_fn, params, sample_shape,
                    for i, name, _, _ in ParamLayout.of(params).entries)
     return (bucket, cfg.rounds, cfg.local_iters, cfg.batch_size,
             cfg.eval_every, opt_token, id(loss_fn), id(acc_fn), shapes,
-            tuple(sample_shape), tuple(test_shape), repr(cfg.guards),
-            repr(cfg.aggregator))
+            tuple(sample_shape), tuple(test_shape), repr(cfg.faults),
+            repr(cfg.guards), repr(cfg.aggregator))
 
 
 def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
                                opt: Optimizer, cfg) -> Callable:
     """Phase B: ``(params, xb [T,P,L,B,...], yb [T,P,L,B], valid [T,P],
-    slot [T,P], num_clients, test_x, test_y[, delivered, stale, probs]) ->
-    (global [W], (acc [T], loss [T], did_eval [T]))``.
+    slot [T,P], num_clients, test_x, test_y[, delivered, corrupt, stale,
+    probs, agg_params]) -> (global [W], (acc [T], loss [T], did_eval
+    [T]))``.
 
     No tensor of the program has a K-sized axis: the carry is the history
     ``[T+1, W]``, training runs over the ``[P, W]`` bucket, and the 1/K of
@@ -254,9 +278,13 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
     does: ``cfg.aggregator`` set → :func:`scheme_subset_aggregate` (active
     guards fold in), else active ``cfg.guards`` →
     :func:`guarded_subset_aggregate`, both K1's weighted mode; otherwise
-    :func:`subset_aggregate`, K1's subset mode.  ``delivered`` defaults to
-    ``valid``, ``stale`` and ``probs`` to zeros (read by the weighted
-    aggregators only).  Building one bumps :data:`TRAIN_TRACE_COUNT`.
+    :func:`subset_aggregate`, K1's subset mode, each over the ``delivered``
+    lanes (default ``valid``).  With ``cfg.faults`` set the ``corrupt``
+    rows are poisoned first (:func:`~repro_torch.fl.faults.corrupt_deltas`).
+    ``stale`` and ``probs`` default to zeros (read by the weighted
+    aggregators only); ``agg_params`` replaces ``cfg.aggregator.params()``,
+    so one program serves a whole scheme panel.  Building one bumps
+    :data:`TRAIN_TRACE_COUNT`.
     """
     global TRAIN_TRACE_COUNT
     TRAIN_TRACE_COUNT += 1
@@ -265,11 +293,12 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
     guards = cfg.guards if cfg.guards is not None and cfg.guards.active \
         else None
     agg = cfg.aggregator
+    faults = cfg.faults
 
     @torch.no_grad()
     def program(params, xb_all, yb_all, valid_all, slot_all, num_clients,
-                test_x, test_y, delivered_all=None, stale_all=None,
-                probs_all=None):
+                test_x, test_y, delivered_all=None, corrupt_all=None,
+                stale_all=None, probs_all=None, agg_params=None):
         dev = xb_all.device
         layout = ParamLayout.of(params)
         hist = torch.zeros((T + 1, layout.width), dtype=torch.float32,
@@ -283,7 +312,11 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
         if probs_all is None:
             probs_all = torch.zeros(valid_all.shape, dtype=torch.float32,
                                     device=dev)
-        ap = agg.params(dev) if agg is not None else None
+        ap = None
+        if agg is not None:
+            ap = agg.params(dev) if agg_params is None else agg_params
+        if faults is not None:
+            fp = faults.params(dev)
         accs = torch.zeros(T, dtype=torch.float32, device=dev)
         losses = torch.zeros(T, dtype=torch.float32, device=dev)
         did = torch.zeros(T, dtype=torch.bool)
@@ -291,6 +324,8 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
             anchors = hist[slot_all[t].long()]
             deltas = local_train(anchors, xb_all[t], yb_all[t],
                                  layout) - anchors
+            if faults is not None:
+                deltas = corrupt_deltas(deltas, corrupt_all[t], fp, faults)
             deliv = delivered_all[t]
             if ap is not None:
                 g_new = scheme_subset_aggregate(
@@ -346,42 +381,31 @@ def _auto_bucket(policy_fn, h_rounds: torch.Tensor, cfg,
     return participant_bucket(expected, cap=num_clients)
 
 
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    current = torch.cuda.current_device()
-    return (a.index if a.index is not None else current) == \
-        (b.index if b.index is not None else current)
-
-
 def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
                        client_data: Sequence[Dataset] | DeviceDataStore,
                        test_ds: Dataset, policy, cell: CellConfig, cfg,
-                       opt: Optimizer | None = None,
-                       device=None) -> Callable:
+                       opt: Optimizer | None = None, device=None,
+                       train_program: Callable | None = None) -> Callable:
     """Participant-centric counterpart of ``engine.make_runner``.
 
-    Returns ``runner(params, h_all, seed=None) -> SimResult`` with the dense
-    engine's result contract: the ``[T, K]`` participation and per-round
-    energy are rebuilt on the host from the participant trace, and
+    Returns ``runner(params, h_all, seed=None, agg_params=None) ->
+    SimResult`` with the dense engine's result contract: the ``[T, K]``
+    participation, per-round energy and, under faults, deliveries and
+    corruptions are rebuilt on the host from the participant trace, and
     ``result.state`` holds the final global row and ``last_tx`` but no
     ``[K, W]`` client rows (the sparse path never builds them).
+    ``agg_params`` replaces ``cfg.aggregator.params()`` for one run.
 
     ``client_data`` is a list of shards or a pre-built
     :class:`DeviceDataStore` (at a million clients a list of datasets is
     not viable); a store must already lie on ``device`` (``None`` means
-    the card): it is never copied.
+    the card): it is never copied.  ``train_program`` is a phase-B
+    program to use in place of the cached one (a scheme matrix builds one
+    for all its lanes).
     """
     device = resolve_device(device)
-    if isinstance(client_data, DeviceDataStore):
-        store = client_data
-        if not _same_device(store.x.device, device):
-            raise ValueError(f"the data store lies on {store.x.device}, the "
-                             f"runner on {device}; move it first")
-    else:
-        store = None
+    store = (_as_store(client_data, device)
+             if isinstance(client_data, DeviceDataStore) else None)
     if opt is None:
         # a value token for the default optimizer: every runner building
         # sgd(cfg.lr) shares one phase-B cache entry
@@ -428,7 +452,8 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
             last_tx, energy, ptr = phase_a[bucket](h_rounds, key)
             return last_tx, energy, ptr, ptr.n_tx.cpu().numpy()
 
-    def runner(params, h_all, seed: int | None = None) -> SimResult:
+    def runner(params, h_all, seed: int | None = None,
+               agg_params=None) -> SimResult:
         key = jr.PRNGKey(cfg.seed if seed is None else seed, device=device)
         h_rounds = torch.as_tensor(h_all, dtype=torch.float32).to(device).T
         bucket = cfg.participant_bucket or _auto_bucket(policy_fn, h_rounds,
@@ -451,7 +476,7 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
             _warn_spill_once(bucket, grown, int(n_tx.max()))
             bucket = grown
             last_tx, energy, ptr, n_tx = _phase_a(bucket, h_rounds, key)
-        train = _cached_train_program(
+        train = train_program or _cached_train_program(
             _train_cache_key(cfg, opt_token, loss_fn, acc_fn, params,
                              store.x.shape[2:], test_x.shape, bucket),
             lambda: build_sparse_train_program(loss_fn, acc_fn, opt, cfg))
@@ -461,7 +486,8 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
                 cfg.batch_size)
             g_final, (accs, losses, did) = train(
                 params, xb_all, yb_all, ptr.valid, ptr.anchor_slot, K,
-                test_x, test_y, ptr.delivered, ptr.stale, ptr.prob)
+                test_x, test_y, ptr.delivered, ptr.corrupt, ptr.stale,
+                ptr.prob, agg_params)
             accs, losses = accs.cpu().numpy(), losses.cpu().numpy()
 
         # host-side densification of the participant trace (numpy, O(T·K))
@@ -469,10 +495,17 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
         val = ptr.valid.cpu().numpy()
         e_p = ptr.e_p.cpu().numpy()
         t_of = np.broadcast_to(np.arange(T)[:, None], idx.shape)
+        sel = (t_of[val], idx[val])
+
+        def dense(lanes):
+            out = np.zeros((T, K), np.float32)
+            out[sel] = lanes.cpu().numpy()[val]
+            return out
+
         parts = np.zeros((T, K), np.float32)
+        parts[sel] = 1.0
         e_round = np.zeros((T, K), np.float32)
-        parts[t_of[val], idx[val]] = 1.0
-        e_round[t_of[val], idx[val]] = e_p[val]
+        e_round[sel] = e_p[val]
         ev = np.where(did.numpy())[0]
         state = FLState(global_params=g_final, client_params=None,
                         anchor_params=None,
@@ -486,7 +519,11 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
             energy_per_client=energy.cpu().numpy(),
             energy_timeline=np.cumsum(e_round.sum(axis=1)),
             participation=parts,
-            state=state)
+            state=state,
+            delivered=dense(ptr.delivered) if cfg.faults is not None
+            else None,
+            corrupted=dense(ptr.corrupt) if cfg.faults is not None
+            else None)
 
     runner.store = store
     return runner

@@ -1,6 +1,7 @@
 """The port on an NVIDIA card: K1 (fl_aggregate) against its plain version,
-a small simulation on the card against the same run on the CPU, and the
-sparse engine against the dense one on the card.
+a small simulation on the card against the same run on the CPU, the sparse
+engine against the dense one on the card, and faulty runs and a scheme
+matrix on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card.  This
 file imports neither JAX nor the JAX package, so it also runs on a host that
@@ -20,8 +21,9 @@ from repro_torch.core.channel import channel_gains, sample_positions
 from repro_torch.core.selection import AgeAwareScheme, RandomScheme
 from repro_torch.data import (Dataset, DeviceDataStore, make_mnist_like,
                               shard_noniid)
-from repro_torch.fl import (AggregatorConfig, GuardConfig, SimConfig,
-                            guarded_aggregate, make_sparse_runner,
+from repro_torch.fl import (AggregatorConfig, FaultConfig, GuardConfig,
+                            SchemeSpec, SimConfig, guarded_aggregate,
+                            make_sparse_runner, run_scheme_matrix,
                             run_simulation, scheme_aggregate)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
@@ -267,3 +269,108 @@ def test_sparse_launches_k1_once_a_round_in_subset_mode(card):
     for field in ("energy_per_client", "test_acc", "test_loss"):
         np.testing.assert_allclose(getattr(got, field), getattr(want, field),
                                    rtol=1e-4, atol=1e-5, err_msg=field)
+
+
+# chip_smoke.py's fault world (benchmarks/bench_faults.py's rates) with a
+# heavier corruption rate, so a short run poisons several uploads
+FAULTS = FaultConfig(p_fail=0.1, p_recover=0.5, diurnal_amp=0.5,
+                     p_crash=0.05, p_loss=0.2, max_retries=1, backoff=2.0,
+                     p_corrupt=0.4, corrupt_mode="nan")
+
+
+def cpu_args(clients, test, h, params):
+    return ([Dataset(c.x.cpu(), c.y.cpu(), 10) for c in clients],
+            Dataset(test.x.cpu(), test.y.cpu(), 10), h.cpu(),
+            [{k: v.cpu() for k, v in layer.items()} for layer in params])
+
+
+def assert_same_faulty_run(got, want):
+    """Masks, deliveries, corruptions and ``last_tx`` bit for bit; floats
+    at rtol 1e-4, atol 1e-5 with NaN in the same places."""
+    for name in ("participation", "delivered", "corrupted", "eval_rounds"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name), err_msg=name)
+    np.testing.assert_array_equal(got.state.last_tx.cpu(),
+                                  want.state.last_tx.cpu())
+    pairs = [(getattr(got, n), getattr(want, n)) for n in (
+        "energy_per_client", "energy_timeline", "test_acc", "test_loss")]
+    pairs.append((got.state.global_params.cpu().numpy(),
+                  want.state.global_params.cpu().numpy()))
+    for a, b in pairs:
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("guarded", [False, True])
+def test_faulty_dense_run_on_the_card_matches_the_cpu(card, guarded):
+    """NaN uploads through K1's plain mode (unguarded: the model goes NaN,
+    as on the CPU) and its weighted mode (guarded: quarantined)."""
+    K, T = 24, 8
+    clients, test, h, params = small_world(card, K, T)
+    cfg = SimConfig(rounds=T, local_iters=2, batch_size=4, eval_every=3,
+                    faults=FAULTS,
+                    guards=GuardConfig(clip_norm=10.0, staleness_power=0.5)
+                    if guarded else None)
+    policy, cell = RandomScheme(0.5, K), CellConfig(num_clients=K)
+    before = (fl_aggregate_cuda.launches, fl_aggregate_cuda.guarded_launches)
+    got = run_simulation(params, mlp_loss, mlp_accuracy, clients, test,
+                         policy, h, cell, cfg)
+    assert (fl_aggregate_cuda.launches - before[0],
+            fl_aggregate_cuda.guarded_launches - before[1]) == (
+        T, T if guarded else 0)
+    c_clients, c_test, c_h, c_params = cpu_args(clients, test, h, params)
+    want = run_simulation(c_params, mlp_loss, mlp_accuracy, c_clients,
+                          c_test, policy, c_h, cell, cfg, device="cpu")
+    assert got.corrupted.sum() >= 1
+    assert_same_faulty_run(got, want)
+    assert torch.isfinite(got.state.global_params).all() == guarded
+
+
+def test_faulty_sparse_run_on_the_card_matches_the_cpu(card):
+    """Guarded NaN uploads on the sparse path: phase A's fault lanes and
+    phase B's corrupted bucket, card against CPU and against the dense
+    engine on the card."""
+    K, T = 24, 8
+    clients, test, h, params = small_world(card, K, T)
+    cfg = SimConfig(rounds=T, local_iters=2, batch_size=4, eval_every=3,
+                    participant_bucket=K, faults=FAULTS,
+                    guards=GuardConfig(clip_norm=10.0, staleness_power=0.5),
+                    participation="sparse", **SPARSE_KW)
+    policy, cell = RandomScheme(0.5, K), CellConfig(num_clients=K)
+    got = run_simulation(params, mlp_loss, mlp_accuracy, clients, test,
+                         policy, h, cell, cfg)
+    c_clients, c_test, c_h, c_params = cpu_args(clients, test, h, params)
+    want = run_simulation(c_params, mlp_loss, mlp_accuracy, c_clients,
+                          c_test, policy, c_h, cell, cfg, device="cpu")
+    dense = run_simulation(params, mlp_loss, mlp_accuracy, clients, test,
+                           policy, h, cell,
+                           dataclasses.replace(cfg, participation="dense"))
+    assert got.state.client_params is None and got.corrupted.sum() >= 1
+    assert_same_faulty_run(got, want)
+    assert_same_faulty_run(got, dense)
+
+
+@pytest.mark.parametrize("path", ["dense", "sparse"])
+def test_two_lane_scheme_matrix_on_the_card_matches_the_cpu(card, path):
+    K, T = 24, 8
+    clients, test, h, params = small_world(card, K, T)
+    panel = [SchemeSpec("paper", RandomScheme(0.25, K),
+                        AggregatorConfig(kind="paper")),
+             SchemeSpec("age-aware", AgeAwareScheme(3, K),
+                        AggregatorConfig(kind="age"))]
+    cfg = SimConfig(rounds=T, local_iters=2, batch_size=4, eval_every=3,
+                    **SPARSE_KW)
+    got = run_scheme_matrix(params, mlp_loss, mlp_accuracy, [clients], test,
+                            panel, h[None], CellConfig(num_clients=K), cfg,
+                            [0], participation=path)
+    c_clients, c_test, c_h, c_params = cpu_args(clients, test, h, params)
+    want = run_scheme_matrix(c_params, mlp_loss, mlp_accuracy, [c_clients],
+                             c_test, panel, c_h[None],
+                             CellConfig(num_clients=K), cfg, [0],
+                             participation=path, device="cpu")
+    assert got.participation.shape == (1, 2, 1, T, K)
+    np.testing.assert_array_equal(got.participation, want.participation)
+    for name in ("energy", "energy_timeline", "acc", "loss"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)

@@ -35,6 +35,6 @@ def test_the_check_sees_the_whole_port():
             "generate.py", "telemetry.py", "llama3_2_1b.py",
             "selective_scan.py", "mamba.py", "moe.py", "fractional.py",
             "convergence.py", "faults.py", "algorithm1.py",
-            "selection.py", "sparse.py", "device.py"} <= names
+            "selection.py", "sparse.py", "device.py", "schemes.py"} <= names
     assert forbidden("jax.numpy") and forbidden("repro.fl")
     assert not forbidden("repro_torch.fl")
