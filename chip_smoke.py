@@ -10,8 +10,8 @@ Phases, each reporting on its own lines:
    and K3, all three at once (from ``src/repro_torch/kernels/csrc``, into
    ``kernels/_build``), with ptxas's registers and spills;
 2. kernel — K1 (``fl_aggregate``) in all three modes, float32 and bfloat16,
-   R ∈ {1, 7, 10, 11, 12, 64, 65, 100, 1000} rows (directly loaded rows,
-   the ring, partial stages), M ∈ {77, 8193, 159012, 199210, 600001}
+   R ∈ {1, 7, 8, 10, 11, 12, 16, 64, 65, 100, 1000} rows (directly loaded
+   rows, the ring, partial stages, the main path's R), M ∈ {77, 8193, 159012, 199210, 600001}
    (narrow, misaligned rows, several tiles a block), aligned and misaligned
    views, against its plain PyTorch version on the card; NaN/Inf with the
    guard on and off at R 4 and 64; two launches bit-equal; then CUDA-event
@@ -76,6 +76,35 @@ Phases, each reporting on its own lines:
    and dense on the CPU; (d) ``run_seed_matrix`` for the three baselines on
    3 seed lanes and ``run_scenario_matrix`` over ρ 0.01, 0.05, 0.2 on one
    lane, at benchmarks/bench_engine.py's K 10 setting;
+3e. the data paths and resumable runs: (a) benchmarks/bench_data.py's
+   world, nothing cut (K 16, 8,000/1,000 examples, d 5, RandomScheme(0.15),
+   B 10, eval_batch 512, eval_every T/4, stream_chunk max(T/8, 16)) on the
+   prestack, device and stream paths at T 50 (L 5) and T 500 (L 1), cold
+   then warm, and at T 2000 (L 1) once, on the device and stream paths
+   only (the prestack run is cut for time): prep, cold and warm seconds and the
+   device-resident data bytes (``torch.cuda.memory_allocated`` around the
+   data; the device store's flat across T, the stream's two chunks); stream
+   = device bit for bit (masks, energy, the global row, acc, loss),
+   prestack masks = device masks, and at T 50 card = CPU on all three
+   paths; a warm T 8, L 1 run on the device and stream paths and the
+   device path's index draw alone under ``torch.profiler`` (wall, device
+   busy and events a round); (b) ``choose_data_path`` with the card's own budget (bench_data's
+   store and the 10⁶-client store of phase 3c resolve to the device, an
+   estimate over half the card's memory to the stream, with no
+   allocation) and ``make_runner(data_path="auto")`` under a budget below
+   the store: the stream runner, equal to the device runner bit for bit;
+   (c) phase 3d (a)'s guarded faulty world, ``checkpoint_every`` 3:
+   ``run_resumable`` = ``make_runner``, killed after 2 segments and
+   resumed = uninterrupted (deliveries, fault state, K1's weighted
+   launches), ``eval_mode="replay"`` boundary evals = the in-loop ones at
+   the same rounds, a fingerprint mismatch raises; (d) quickstart random
+   runs with ``momentum`` and ``adam``, card = CPU (Adam's model after one
+   round at the slice tolerance and after 4 rounds by a relative L2 limit
+   between one-ulp nudges and planted faults), and ``shard_store`` (60,000
+   examples, K 10, d 5) and ``dirichlet_store`` (K 100, α 0.3), card = CPU
+   bit for bit, each timed; then every (mode, dtype, R, M) that phases 3
+   to 3e gave K1 is held against the plain version (by phase 2's sweep,
+   or checked there and then);
 4. attention kernel — K2 (``flash_attention``) against its plain version on
    the card: the sweeps of tests/test_kernels.py (MHA, GQA 2:1 and 4:1,
    MQA, hd 64 and 128), windows 1 to 128, ``causal=False``, ragged S (1,
@@ -128,7 +157,7 @@ order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(K1, K2 and K3), each with its launches on its main path (phases 3 to 3d
+(K1, K2 and K3), each with its launches on its main path (phases 3 to 3e
 for K1, also counted by mode: plain, subset and weighted, with the
 non-finite rows phase 3d's faulty runs reduced; the generate
 run of phase 5a for K2, that of phase 7a for K3) and its times at the main
@@ -237,44 +266,55 @@ def run_mode(ops, ref, mode, g, d, mask, weights, kernel: bool):
             else ref.fl_aggregate_guarded_ref(g, d, weights))
 
 
-def check_kernel(torch):
+def check_case(torch, mode, dname, R, M, offset, gen) -> float:
+    """One K1 launch against its plain version on the same inputs; returns
+    max |kernel - plain|."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+    dtype = getattr(torch, dname)
+    g, d, mask, w = kernel_inputs(torch, R, M, dtype, gen, offset)
+    before = fl_aggregate_cuda.launches
+    out = run_mode(ops, ref, mode, g, d, mask, w, True)
+    want = run_mode(ops, ref, mode, g, d, mask, w, False)
+    torch.cuda.synchronize()
+    if fl_aggregate_cuda.launches != before + 1:
+        raise AssertionError("kernel did not launch")
+    if out.dtype != dtype or out.shape != (M,):
+        raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
+    err = float((out.float() - want.float()).abs().max())
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dname])
+    return err
+
+
+def check_kernel(torch):
+    """Phase 2; returns K1's worst error at the slice's shape and the
+    ``(mode, dtype, R, M)`` cases it held."""
+    from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     worst = {}
+    checked = set()
     main_err = 0.0
     n = 0
     # R: 1 to 11 load every row directly, 12 and up go through the ring in
-    # stages of 10 (fp32) or 16 (bf16) rows, so 12, 65 and 1000 end in a
-    # partial stage; M: 77 and 8193 are narrower than one tile a block,
+    # stages of 10 (fp32) or 16 (bf16) rows, so 12, 16 (fp32), 65 and 1000
+    # end in a partial stage; 8, 10, 16 and 64 are the main path's buckets
+    # and populations; M: 77 and 8193 are narrower than one tile a block,
     # 199,210 leaves every other row 8 bytes off 16, 600,001 gives each
     # block three tiles; offset 1 misaligns every operand
     for mode in ("plain", "subset", "guarded"):
-        for dname, dtype in dtypes.items():
-            for R in (1, 7, 10, 11, 12, 64, 65, 100, 1000):
+        for dname in dtypes:
+            for R in (1, 7, 8, 10, 11, 12, 16, 64, 65, 100, 1000):
                 for M in (77, 8193, MAIN_M, 199_210, 600_001):
                     for offset in (0, 1):
-                        g, d, mask, w = kernel_inputs(torch, R, M, dtype, gen,
-                                                      offset)
-                        before = fl_aggregate_cuda.launches
-                        out = run_mode(ops, ref, mode, g, d, mask, w, True)
-                        want = run_mode(ops, ref, mode, g, d, mask, w, False)
-                        torch.cuda.synchronize()
-                        if fl_aggregate_cuda.launches != before + 1:
-                            raise AssertionError("kernel did not launch")
-                        if out.dtype != dtype or out.shape != (M,):
-                            raise AssertionError(f"bad output {out.dtype} "
-                                                 f"{tuple(out.shape)}")
-                        err = float((out.float() - want.float()).abs().max())
-                        torch.testing.assert_close(out.float(), want.float(),
-                                                   **TOL[dname])
+                        err = check_case(torch, mode, dname, R, M, offset,
+                                         gen)
+                        checked.add((mode, dname, R, M))
                         key = (mode, dname)
                         worst[key] = max(worst.get(key, 0.0), err)
                         if dname == "float32" and M == MAIN_M and R == K:
                             main_err = max(main_err, err)
                         n += 1
-                        del g, d, out, want
     for (mode, dname), err in sorted(worst.items()):
         log(f"[kernel] {mode:8s} {dname:8s} max |kernel - plain| = {err:.3e} "
             f"(tolerance atol {TOL[dname]['atol']}, rtol "
@@ -324,7 +364,26 @@ def check_kernel(torch):
                                  f"M={M} offset={offset}")
     log(f"[kernel] deterministic: two launches bit-equal in {len(cases)} "
         f"cases (R 7 to 1000, direct and ring, fp32 and bf16, misaligned)")
-    return main_err
+    return main_err, checked
+
+
+def check_main_shapes(torch, checked) -> None:
+    """Every ``(mode, dtype, R, M)`` the main path (phases 3 to 3e) gave K1
+    is held against the plain version: the shapes phase 2 did not sweep
+    are checked here, at both alignments, on fresh inputs."""
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    seen = set(k1.shapes)
+    extra = sorted(seen - checked)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    for mode, dname, R, M in extra:
+        for offset in (0, 1):
+            worst = max(worst, check_case(torch, mode, dname, R, M, offset,
+                                          gen))
+    names = ", ".join(f"{m} {d} R {r} M {c}" for m, d, r, c in sorted(seen))
+    log(f"[kernel] the main path gave K1 {len(seen)} shapes ({names}); "
+        f"{len(seen) - len(extra)} held in phase 2, {len(extra)} held now "
+        f"(worst |kernel - plain| {worst:.3e})")
 
 
 def time_ms(torch, fn, flush, iters=100, warmup=5, l2="dirty"):
@@ -1518,6 +1577,596 @@ def faults_and_matrices(torch, world):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_data.py's world (build_world, bench): K 16, 8,000/1,000
+# MNIST-like examples, d 5, RandomScheme(0.15), B 10, eval_batch 512,
+# eval_every T/4, stream_chunk max(T/8, 16); L 5 at T 50, L 1 above
+DATA_K, DATA_TRAIN, DATA_P = 16, 8_000, 0.15
+DATA_HORIZONS = ((50, 5, 2), (500, 1, 2), (2000, 1, 1))   # T, L, runs
+DATA_PATHS = ("prestack", "device", "stream")
+# the one run dropped to keep phase 3e within its 120 s: T 2000's prestack
+# stack (1 GB on the host, then on the card) and run
+DATA_CUT = {(2000, "prestack")}
+# Adam's model after ADAM_ROUNDS quickstart rounds from the initial models
+# of ADAM_SEEDS: the card-CPU relative L2 gap limit, between one-ulp nudges
+# of the initial weights on the CPU and planted faults on the card
+ADAM_ROUNDS, ADAM_REL_L2, ADAM_SEEDS = 4, 5e-3, (4, 5, 6)
+TRACE_ROUNDS = 8     # the traced runs at L 1 (~0.3 s of profiling a round)
+RESUME_EVERY = 3
+
+
+def data_world(torch):
+    """bench_data.py's build_world on the card, gains for its longest T."""
+    from repro_torch import random as jr
+    from repro_torch.core import CellConfig
+    from repro_torch.core.channel import channel_gains, sample_positions
+    from repro_torch.data import make_mnist_like, shard_noniid
+    from repro_torch.models.small import init_mlp
+
+    train, test = make_mnist_like(jr.PRNGKey(0), n_train=DATA_TRAIN,
+                                  n_test=1_000)
+    cell = CellConfig(num_clients=DATA_K)
+    T = max(t for t, _, _ in DATA_HORIZONS)
+    return dict(
+        clients=shard_noniid(jr.PRNGKey(1), train, DATA_K, d=5), test=test,
+        cell=cell, params=init_mlp(jr.PRNGKey(4)),
+        h=channel_gains(jr.PRNGKey(3, device="cuda"), sample_positions(
+            jr.PRNGKey(2, device="cuda"), cell), T).T)
+
+
+def data_config(T, L):
+    from repro_torch.fl import SimConfig
+    return SimConfig(rounds=T, local_iters=L, batch_size=10,
+                     eval_every=max(T // 4, 1), eval_batch=512,
+                     stream_chunk=max(T // 8, 16))
+
+
+def same_bits(np, torch, got, ref, what):
+    """Masks, energy, the global row, accuracy and loss equal bit for
+    bit."""
+    for name in ("participation", "energy_per_client", "energy_timeline",
+                 "test_acc", "test_loss", "eval_rounds"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name),
+                                      err_msg=f"{what}: {name}")
+    if not torch.equal(got.state.global_params, ref.state.global_params):
+        raise AssertionError(f"{what}: the global rows differ")
+
+
+def data_path_runs(torch, w):
+    """(a) bench_data.py's three paths at T 50, 500 and 2000 on the card,
+    less ``DATA_CUT``; returns the T 50 device result and its runner's
+    config."""
+    import resource
+
+    import numpy as np
+
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.fl import make_runner
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    policy = RandomScheme(DATA_P, DATA_K)
+    t_sub = time.perf_counter()
+    flat = {p: set() for p in ("device", "stream")}
+    keep = {}
+    for T, L, runs in DATA_HORIZONS:
+        cfg = data_config(T, L)
+        h = w["h"][:, :T]
+        out = {}
+        for path in DATA_PATHS:
+            if (T, path) in DATA_CUT:
+                continue
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            runner = make_runner(mlp_loss, mlp_accuracy, w["clients"],
+                                 w["test"], policy, w["cell"], cfg,
+                                 data_path=path)
+            torch.cuda.synchronize()
+            prep = time.perf_counter() - t0
+            data_bytes = torch.cuda.memory_allocated() - before
+            host = ""
+            if path == "stream":   # two chunks in flight, the steady state
+                s = runner.sampler
+                C = min(cfg.stream_chunk, T)
+                t0 = time.perf_counter()
+                held = [s.chunk(0, C), s.chunk(C, min(2 * C, T))]
+                torch.cuda.synchronize()
+                gather = time.perf_counter() - t0
+                data_bytes = torch.cuda.memory_allocated() - before
+                exact = sum(t.numel() * t.element_size()
+                            for pair in held for t in pair)
+                # the allocator rounds each large block up to 2 MiB
+                if not exact <= data_bytes <= exact + 4 * (2 << 20):
+                    raise AssertionError(f"T={T}: {data_bytes} B on the "
+                                         f"card for {exact} B of chunks")
+                del held
+                host = (f" pinned host blocks {s.nbytes_host / 1e6:.1f} MB; "
+                        f"two chunks of {C} rounds gathered and copied in "
+                        f"{gather * 1e3:.2f} ms")
+            elif path == "prestack":
+                host = (f" (stacked on the host first: "
+                        f"{data_bytes / 1e6:.1f} MB)")
+            walls = []
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = runner(w["params"], h)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            if path in flat:
+                flat[path].add(data_bytes if path == "device"
+                               else (data_bytes, exact, L,
+                                     min(cfg.stream_chunk, T), T))
+            out[path] = res
+            del runner
+            warm = (f"warm {walls[1]:.3f} s ({walls[1] / T * 1e3:.2f} ms a "
+                    "round)" if runs > 1 else "one run")
+            log(f"[data] T={T:5d} L={L} {path:8s} prep {prep:.3f} s, cold "
+                f"{walls[0]:.3f} s, {warm}; device data "
+                f"{data_bytes / 1e6:.1f} MB;{host} final_acc="
+                f"{res.test_acc[-1]:.4f}")
+        same_bits(np, torch, out["stream"], out["device"], f"T={T} stream")
+        prestack = ""
+        if "prestack" in out:
+            np.testing.assert_array_equal(out["prestack"].participation,
+                                          out["device"].participation)
+            prestack = " prestack masks = device masks;"
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        log(f"[data] T={T}: stream = device bit for bit (masks, energy, the "
+            f"global row, acc, loss);{prestack} host peak RSS so far "
+            f"{rss:.2f} GB")
+        if T == DATA_HORIZONS[0][0]:
+            keep = dict(out, cfg=cfg)
+    dev = flat["device"]
+    if len(dev) != 1:
+        raise AssertionError(f"device-store bytes change with T: {dev}")
+    per_step = {e / (min(2 * C, t) * L)
+                for _, e, L, C, t in flat["stream"]}
+    if len(per_step) != 1:
+        raise AssertionError(f"stream bytes are not two chunks: {flat}")
+    log(f"[data] device store {dev.pop() / 1e6:.1f} MB at every T; stream "
+        f"{sorted(round(b / 1e6, 1) for b, *_ in flat['stream'])} MB "
+        f"on the card = two chunks of {per_step.pop() / 1e6:.4f} MB a "
+        f"round-step (T enters only through stream_chunk = max(T/8, 16)); "
+        f"(a) on the card in {time.perf_counter() - t_sub:.1f} s")
+    return keep
+
+
+def trace_data_paths(torch, w):
+    """(a) where the device path's extra time a round goes: a warm
+    ``TRACE_ROUNDS``-round run at L 1 on the device and stream paths under
+    ``torch.profiler``, and what the device path does there that the
+    stream path does on the host: each round's index draw
+    (:func:`round_indices`) alone."""
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.data import data_stream_key, from_client_datasets
+    from repro_torch.data.device import round_indices
+    from repro_torch.fl import make_runner
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    R = TRACE_ROUNDS
+    cfg = data_config(R, 1)
+    h = w["h"][:, :R]
+    per = {}
+    for path in ("device", "stream"):
+        runner = make_runner(mlp_loss, mlp_accuracy, w["clients"], w["test"],
+                             RandomScheme(DATA_P, DATA_K), w["cell"], cfg,
+                             data_path=path)
+        runner(w["params"], h)                          # warm
+        per[path] = trace_window(torch, f"T={R} L=1 {path} run (warm)",
+                                 lambda: runner(w["params"], h))
+        del runner
+    store = from_client_datasets(w["clients"])
+    key = data_stream_key(cfg.seed, device="cuda")
+    def draws():
+        for t in range(R):
+            round_indices(key, t, store.lengths, 1, cfg.batch_size)
+    draws()                                             # warm
+    per["draw"] = trace_window(torch, f"{R} rounds of the device path's "
+                               f"index draw alone", draws)
+    if all(per.values()):
+        (dw, db, de), (sw, sb, se), (gw, gb, ge) = (
+            per[p] for p in ("device", "stream", "draw"))
+        log(f"[data] a round at L 1, traced: device {dw / R:.3f} ms wall, "
+            f"{db / R:.3f} ms busy, {de / R:.1f} device events; stream "
+            f"{sw / R:.3f} ms, {sb / R:.3f} ms, {se / R:.1f}; the gap "
+            f"{(dw - sw) / R:.3f} ms wall and {(de - se) / R:.1f} events; "
+            f"the index draw alone {gw / R:.3f} ms wall, {gb / R:.3f} ms "
+            f"busy, {ge / R:.1f} events")
+
+
+def data_path_cpu(torch, w, card):
+    """(a) the T 50 runs on the CPU: card = CPU on all three paths."""
+    import numpy as np
+
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.data import Dataset
+    from repro_torch.fl import make_runner
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    t0 = time.perf_counter()
+    clients = [Dataset(c.x.cpu(), c.y.cpu(), 10) for c in w["clients"]]
+    test = Dataset(w["test"].x.cpu(), w["test"].y.cpu(), 10)
+    params = [{k: v.cpu() for k, v in layer.items()} for layer in w["params"]]
+    cfg = card["cfg"]
+    for path in DATA_PATHS:
+        ref = make_runner(mlp_loss, mlp_accuracy, clients, test,
+                          RandomScheme(DATA_P, DATA_K), w["cell"], cfg,
+                          device="cpu", data_path=path)(
+            params, w["h"][:, :cfg.rounds].cpu())
+        worst = held_to(np, card[path], ref)
+        log(f"[data] T={cfg.rounds} {path:8s} card = CPU: masks, eval "
+            f"rounds, last_tx equal; floats within rtol {SLICE_RTOL} atol "
+            f"{SLICE_ATOL} (worst {worst:.3f})")
+    log(f"[data] CPU runs in {time.perf_counter() - t0:.1f} s")
+
+
+def planning_checks(torch, w, card):
+    """(b) choose_data_path with the card's own budget; the auto-resolved
+    stream runner against the device runner."""
+    import numpy as np
+
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.data import (choose_data_path, device_memory_budget,
+                                  estimate_store_bytes, store_bytes)
+    from repro_torch.fl import make_runner
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    budget = device_memory_budget()
+    need = estimate_store_bytes(w["clients"])
+    million = store_bytes(10 ** 6, 8, (784,))
+    over = int(0.5 * budget) + 1
+    before = torch.cuda.memory_allocated()
+    got = (choose_data_path(w["clients"]), choose_data_path(million),
+           choose_data_path(over))
+    if got != ("device", "device", "stream"):
+        raise AssertionError(f"choose_data_path on the card: {got}")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("planning allocated device memory")
+    cfg = card["cfg"]
+    runner = make_runner(mlp_loss, mlp_accuracy, w["clients"], w["test"],
+                         RandomScheme(DATA_P, DATA_K), w["cell"], cfg,
+                         data_path="auto", data_budget_bytes=need)
+    if not hasattr(runner, "sampler"):
+        raise AssertionError("auto below the store did not stream")
+    res = runner(w["params"], w["h"][:, :cfg.rounds])
+    same_bits(np, torch, res, card["device"], "auto-stream")
+    log(f"[plan] budget {budget / 1e9:.3f} GB (the card's memory): bench_data "
+        f"store {need / 1e6:.1f} MB -> device; the 10^6-client store "
+        f"{million / 1e9:.3f} GB -> device; {over / 1e9:.3f} GB -> stream "
+        f"(no allocation); auto under a {need / 1e6:.1f} MB budget -> the "
+        "stream runner, = the device runner bit for bit")
+
+
+def resume_runs(torch, world):
+    """(c) phase 3d (a)'s guarded world, resumable, kill and resume, replay
+    evals, a fingerprint mismatch."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.fl import (FaultConfig, GuardConfig, SimConfig,
+                                make_runner, read_segment_manifest,
+                                run_resumable)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+    from repro_torch.obs.telemetry import get_telemetry
+
+    t_sub = time.perf_counter()
+    cfg = SimConfig(rounds=T, local_iters=5, batch_size=10, eval_every=4,
+                    faults=FaultConfig(**FAULT_KW, corrupt_mode="nan"),
+                    guards=GuardConfig(**GUARD_KW),
+                    checkpoint_every=RESUME_EVERY)
+    policy = RandomScheme(p_bar=FAULT_P, num_clients=K)
+    args = (world["params"], mlp_loss, mlp_accuracy, world["clients"],
+            world["test"], policy, world["h"], world["cell"])
+    direct = make_runner(mlp_loss, mlp_accuracy, world["clients"],
+                         world["test"], policy, world["cell"], cfg)(
+        world["params"], world["h"])
+
+    def launches(fn):
+        before = k1.guarded_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, k1.guarded_launches - before, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as d:
+        whole, n_whole, s_whole = launches(
+            lambda: run_resumable(*args, cfg, f"{d}/whole"))
+        same_bits(np, torch, whole, direct, "resumable")
+        np.testing.assert_array_equal(whole.delivered, direct.delivered)
+        np.testing.assert_array_equal(whole.corrupted, direct.corrupted)
+        killed, n_kill, s_kill = launches(
+            lambda: run_resumable(*args, cfg, f"{d}/kill",
+                                  stop_after_segment=2))
+        if killed is not None:
+            raise AssertionError("the killed run returned a result")
+        resumed, n_res, s_res = launches(
+            lambda: run_resumable(*args, cfg, f"{d}/kill"))
+        same_bits(np, torch, resumed, whole, "killed and resumed")
+        np.testing.assert_array_equal(resumed.delivered, whole.delivered)
+        np.testing.assert_array_equal(resumed.corrupted, whole.corrupted)
+        for f in ("client_params", "anchor_params", "last_tx", "round"):
+            if not torch.equal(getattr(resumed.state, f),
+                               getattr(whole.state, f)):
+                raise AssertionError(f"resumed state {f} differs")
+        if (n_whole, n_kill + n_res) != (T, T):
+            raise AssertionError(f"K1 weighted launches {n_whole}, "
+                                 f"{n_kill} + {n_res}, not {T}")
+        segs = [e["segment"] for e in read_segment_manifest(f"{d}/kill")]
+        rep_cfg = dataclasses.replace(cfg, eval_mode="replay")
+        rep, _, s_rep = launches(
+            lambda: run_resumable(*args, rep_cfg, f"{d}/replay"))
+        if not torch.equal(rep.state.global_params,
+                           whole.state.global_params):
+            raise AssertionError("replay changed the model")
+        common = sorted(set(rep.eval_rounds) & set(whole.eval_rounds))
+        a = [rep.test_acc[list(rep.eval_rounds).index(t)] for t in common]
+        b = [whole.test_acc[list(whole.eval_rounds).index(t)]
+             for t in common]
+        la = [rep.test_loss[list(rep.eval_rounds).index(t)] for t in common]
+        lb = [whole.test_loss[list(whole.eval_rounds).index(t)]
+              for t in common]
+        worst = max(held_floats(np, a, b, "replay acc"),
+                    held_floats(np, la, lb, "replay loss"))
+        try:
+            run_resumable(*args, dataclasses.replace(cfg, seed=99),
+                          f"{d}/kill")
+        except ValueError as e:
+            if "different run" not in str(e):
+                raise
+        else:
+            raise AssertionError("a fingerprint mismatch was accepted")
+    span = get_telemetry().span_stats("resume.segment")
+    log(f"[resume] T={T} every {RESUME_EVERY}: resumable = make_runner bit "
+        f"for bit ({s_whole:.2f} s, K1 weighted {n_whole}); killed after "
+        f"segment 2 ({s_kill:.2f} s, {n_kill} launches) and resumed "
+        f"({s_res:.2f} s, {n_res}) = uninterrupted bit for bit, fault "
+        f"state and deliveries included; segments run {segs}; replay evals "
+        f"at {rep.eval_rounds.tolist()} ({s_rep:.2f} s) = in-loop at "
+        f"{[int(t) for t in common]} "
+        f"(worst {worst:.3f}); a fingerprint mismatch raised; "
+        f"resume.segment mean {span['mean_s'] * 1e3:.1f} ms; (c) in "
+        f"{time.perf_counter() - t_sub:.1f} s")
+
+
+def planted_adam(torch, kind: str, lr: float = 0.01):
+    """Adam with a planted fault, to show that the gap limit catches one:
+    ``"no-bias-correction"`` drops ``1 - b^t``; ``"state-carried"`` keeps
+    its moments across rounds instead of starting each round afresh."""
+    from repro_torch.optim import Optimizer, adam
+
+    if kind == "no-bias-correction":
+        def init(p):
+            return torch.zeros_like(p), torch.zeros_like(p)
+
+        def update(g, state, p):
+            m, v = state
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            return -lr * m / (torch.sqrt(v) + 1e-8), (m, v)
+        return Optimizer(init, update)
+    base, kept = adam(lr), {}
+
+    def init(p):
+        state = kept.get(tuple(p.shape))
+        return base.init(p) if state is None else state
+
+    def update(g, state, p):
+        upd, state = base.update(g, state, p)
+        kept[tuple(p.shape)] = state
+        return upd, state
+    return Optimizer(init, update)
+
+
+def rel_gap(a, b) -> float:
+    """``||a - b|| / ||b||`` of two flat models, on the CPU."""
+    a, b = a.cpu().double(), b.cpu().double()
+    return float((a - b).norm() / b.norm())
+
+
+def optim_partition_runs(torch, world):
+    """(d) momentum and Adam runs, the partitioners; card = CPU.
+
+    Adam at lr 0.01 on the quickstart amplifies a last-ulp difference: its
+    step is about ``lr · sign(g)`` wherever ``|g|`` is well above ``eps``,
+    so a gradient that rounds to the other side of 0 moves a weight by
+    2·lr, and such flips compound over rounds; after 12 rounds a one-ulp
+    nudge of the initial weights moves the model as far as the card lies
+    from the CPU.  So the model is held where the chaos has not yet grown:
+    after one round at the slice tolerance, after ``ADAM_ROUNDS`` by a
+    relative L2 gap under ``ADAM_REL_L2`` from three initial models, a
+    limit the run checks against one-ulp nudges on the CPU (below it) and
+    planted faults on the card (above it).  The quickstart's 12 rounds
+    are held bit for bit where the model does not enter (masks, eval
+    rounds, ``last_tx``), and Adam's steps bit for bit on the same
+    gradients."""
+    import numpy as np
+
+    from repro_torch import random as jr
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.data import (Dataset, dirichlet_store,
+                                  make_mnist_like, shard_store)
+    from repro_torch.fl import SimConfig, run_simulation
+    from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
+    from repro_torch.optim import adam, momentum
+
+    policy = RandomScheme(p_bar=0.1, num_clients=K)
+
+    def config(rounds):
+        return SimConfig(rounds=rounds, local_iters=5, batch_size=10,
+                         eval_every=4)
+
+    def card_run(opt, rounds=T, params=None):
+        return run_simulation(params or world["params"], mlp_loss,
+                              mlp_accuracy, world["clients"], world["test"],
+                              policy, world["h"][:, :rounds], world["cell"],
+                              config(rounds), opt=opt)
+
+    def cpu_run(opt, rounds=T, params=None):
+        return run_simulation(params or world["c_params"], mlp_loss,
+                              mlp_accuracy, world["c_clients"],
+                              world["c_test"], policy,
+                              world["h"][:, :rounds].cpu(), world["cell"],
+                              config(rounds), opt=opt, device="cpu")
+
+    def nudged(seed, toward):
+        """The initial weights with half the ``w`` entries one ulp off."""
+        gen = torch.Generator().manual_seed(seed)
+        out = []
+        for layer in world["c_params"]:
+            new = dict(layer)
+            w = layer["w"]
+            pick = torch.rand(w.shape, generator=gen) < 0.5
+            new["w"] = torch.where(pick, torch.nextafter(
+                w, torch.full_like(w, toward)), w)
+            out.append(new)
+        return out
+
+    for name, make in (("momentum", momentum), ("adam", adam)):
+        t0 = time.perf_counter()
+        got = card_run(make(0.01))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = cpu_run(make(0.01))
+        c_wall = time.perf_counter() - t0
+        if name == "momentum":
+            worst = held_to(np, got, ref)
+            log(f"[optim] {name:8s} card {wall:.2f} s, CPU {c_wall:.2f} s: "
+                f"card = CPU (worst {worst:.3f}); final_loss="
+                f"{got.test_loss[-1]:.4f}")
+            continue
+        for field in ("participation", "eval_rounds"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(ref, field))
+        np.testing.assert_array_equal(got.state.last_tx.cpu().numpy(),
+                                      ref.state.last_tx.cpu().numpy())
+        held_floats(np, got.energy_per_client, ref.energy_per_client,
+                    "energy")
+        gap_T = rel_gap(got.state.global_params, ref.state.global_params)
+        # one round: the whole run at the slice tolerance
+        one = held_to(np, card_run(make(0.01), 1), cpu_run(make(0.01), 1))
+        # ADAM_ROUNDS rounds: the model's relative L2 gap card-CPU under the
+        # limit on three initial models, with the sound readings (one-ulp
+        # nudges on the CPU) below it and the planted faults above
+        R = ADAM_ROUNDS
+        want = cpu_run(make(0.01), R)
+        gaps = []
+        for seed in ADAM_SEEDS:
+            params = (world["params"] if seed == 4
+                      else init_mlp(jr.PRNGKey(seed)))
+            c_params = [{k: v.cpu() for k, v in layer.items()}
+                        for layer in params]
+            short = card_run(make(0.01), R, params)
+            ref_s = want if seed == 4 else cpu_run(make(0.01), R, c_params)
+            np.testing.assert_array_equal(short.participation,
+                                          ref_s.participation)
+            gaps.append(rel_gap(short.state.global_params,
+                                ref_s.state.global_params))
+        sound = [rel_gap(cpu_run(make(0.01), R, nudged(seed, toward))
+                         .state.global_params, want.state.global_params)
+                 for seed in (0, 1) for toward in (np.inf, -np.inf)]
+        planted = {kind: rel_gap(card_run(opt, R).state.global_params,
+                                 want.state.global_params)
+                   for kind, opt in (
+                       ("b2 0.99", make(0.01, b2=0.99)),
+                       ("no-bias-correction",
+                        planted_adam(torch, "no-bias-correction")),
+                       ("state-carried", planted_adam(torch, "state-carried")))}
+        if not max(sound) < ADAM_REL_L2 < min(planted.values()):
+            raise AssertionError(f"adam: the limit {ADAM_REL_L2} does not "
+                                 f"part one-ulp nudges {sound} from planted "
+                                 f"faults {planted}")
+        if not max(gaps) <= ADAM_REL_L2:
+            raise AssertionError(f"adam: card-CPU relative L2 gaps {gaps} "
+                                 f"after {R} rounds, limit {ADAM_REL_L2}")
+        # the optimizer alone: Adam's steps on the same gradients
+        gen = torch.Generator().manual_seed(19)
+        grads = [torch.randn(K, MAIN_M, generator=gen) for _ in range(8)]
+        rows = []
+        for dev in (got.state.global_params.device, "cpu"):
+            opt = make(0.01)
+            p = torch.zeros(K, MAIN_M, device=dev)
+            st = opt.init(p)
+            for g in grads:
+                upd, st = opt.update(g.to(dev), st, p)
+                p = p + upd
+            rows.append(p.cpu())
+        if not torch.equal(*rows):
+            raise AssertionError("adam's steps differ between card and CPU")
+        faults = ", ".join(f"{k} {v:.4g}" for k, v in planted.items())
+        log(f"[optim] {name:8s} card {wall:.2f} s, CPU {c_wall:.2f} s: "
+            f"{T} rounds: masks, eval rounds, last_tx equal, energy within "
+            f"tolerance, the model's card-CPU relative L2 gap {gap_T:.4g} "
+            f"(not held); 1 round: card = CPU within rtol {SLICE_RTOL} atol "
+            f"{SLICE_ATOL} (worst {one:.3f}); {R} rounds: relative L2 gaps "
+            f"{', '.join(f'{x:.4g}' for x in gaps)} (initial models "
+            f"{ADAM_SEEDS}) <= {ADAM_REL_L2} (one-ulp nudges on the CPU "
+            f"{', '.join(f'{x:.4g}' for x in sound)}; planted faults on the "
+            f"card {faults}); 8 steps on the same [{K}, {MAIN_M}] gradients "
+            f"card = CPU bit for bit; final acc {got.test_acc[-1]:.4f} / "
+            f"{ref.test_acc[-1]:.4f} (card / CPU)")
+    train, _ = make_mnist_like(jr.PRNGKey(0))                     # 60,000
+    c_train = Dataset(train.x.cpu(), train.y.cpu(), 10)
+    for name, fn, args in (("shard_store K 10 d 5", shard_store, (10, 5)),
+                           ("dirichlet_store K 100 a 0.3", dirichlet_store,
+                            (100, 0.3))):
+        walls = {}
+        stores = {}
+        for dev, ds in (("cuda", train), ("cpu", c_train)):
+            if dev == "cuda":   # the card's first launches, untimed
+                fn(jr.PRNGKey(7, device=dev), ds, *args)
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stores[dev] = fn(jr.PRNGKey(7, device=dev), ds, *args)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            walls[dev] = time.perf_counter() - t0
+        for a, b in zip(stores["cuda"], stores["cpu"]):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{name}: card and CPU differ")
+        lens = stores["cpu"].lengths
+        log(f"[partition] {name}: card {walls['cuda'] * 1e3:.1f} ms, CPU "
+            f"{walls['cpu'] * 1e3:.1f} ms, card = CPU bit for bit (cap "
+            f"{int(lens.max())}, smallest client {int(lens.min())})")
+
+
+def data_and_resume(torch, world):
+    """Phase 3e: (a)-(d); returns K1's launches (all, subset, weighted)."""
+    import numpy as np
+
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+
+    zero_k1(k1)
+    steps = []
+
+    def step(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        steps.append(f"{name} {time.perf_counter() - t0:.1f}")
+        return out
+
+    w = step("world", data_world, torch)
+    card = step("(a)", data_path_runs, torch, w)
+    step("trace", trace_data_paths, torch, w)
+    step("(b)", planning_checks, torch, w, card)
+    step("(c)", resume_runs, torch, world)
+    step("(d)", optim_partition_runs, torch, world)
+    counts = np.asarray(k1_counts(k1))
+    step("(a) on the CPU", data_path_cpu, torch, w, card)
+    log(f"[data] phase 3e's steps in s: {', '.join(steps)}")
+    log(f"[data] K1 launches in phase 3e: {int(counts[0])} (subset "
+        f"{int(counts[1])}, weighted {int(counts[2])})")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -1874,7 +2523,8 @@ def trace_window(torch, name, fn):
     synchronize, with the profiler on), device busy time (the summed time of
     the device's own events: one stream, so they do not overlap) and the
     kernels that take most of it.  Only the profiler's own start and stop
-    may fail quietly; a fault of ``fn`` itself ends the run."""
+    may fail quietly; a fault of ``fn`` itself ends the run.  Returns
+    ``(wall ms, busy ms, device events)``, or None when not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1912,10 +2562,11 @@ def trace_window(torch, name, fn):
     top = sorted(events, key=device_us, reverse=True)[:6]
     parts = ", ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms "
                       f"x{e.count}" for e in top)
+    n_events = sum(e.count for e in events)
     log(f"[trace] {name}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f} %, idle {100 - 100 * busy / wall:.1f}"
-        f" %), {sum(e.count for e in events)} device events; top kernels: "
-        f"{parts}")
+        f" %), {n_events} device events; top kernels: {parts}")
+    return wall, busy, n_events
 
 
 def trace_llm(torch, T, model, toks, P, N):
@@ -2344,8 +2995,10 @@ def main() -> int:
     bandwidth, bw_name = card_bandwidth(torch.cuda.get_device_name(0))
     log(f"[env] bound uses {bw_name} device memory, {FP32_PEAK / 1e12:.0f} "
         f"TFLOP/s fp32")
-    max_err = check_kernel(torch)
+    max_err, checked = check_kernel(torch)
     timing = time_kernel(torch, bandwidth)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+    fl_aggregate_cuda.shapes.clear()
     launches, world = slice_runs(torch)
     panel, panel_weighted = panel_runs(torch, world)
     t0 = time.perf_counter()
@@ -2354,7 +3007,11 @@ def main() -> int:
     t0 = time.perf_counter()
     faulty, poison = faults_and_matrices(torch, world)
     log(f"[faults] phase 3d in {time.perf_counter() - t0:.1f} s")
-    sparse = sparse + faulty
+    t0 = time.perf_counter()
+    data = data_and_resume(torch, world)
+    log(f"[data] phase 3e in {time.perf_counter() - t0:.1f} s")
+    check_main_shapes(torch, checked)
+    sparse = sparse + faulty + data
     k1_modes = {"plain": launches + panel - panel_weighted
                 + int(sparse[0] - sparse[1] - sparse[2]),
                 "subset": int(sparse[1]),

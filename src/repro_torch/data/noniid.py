@@ -66,3 +66,16 @@ def shard_noniid(key: torch.Tensor, ds: Dataset, num_clients: int,
         sel = torch.from_numpy(idx).to(ds.x.device)
         out.append(Dataset(ds.x[sel], ds.y[sel], ds.num_classes))
     return out
+
+
+def heterogeneity(clients: list[Dataset]) -> float:
+    """Mean pairwise total-variation distance between the clients' label
+    distributions: 0 for IID, toward 1 for disjoint labels."""
+    C = clients[0].num_classes
+    ps = []
+    for ds in clients:
+        counts = np.bincount(ds.y.cpu().numpy(), minlength=C).astype(float)
+        ps.append(counts / counts.sum())
+    dists = [0.5 * np.abs(ps[i] - ps[j]).sum()
+             for i in range(len(ps)) for j in range(i + 1, len(ps))]
+    return float(np.mean(dists))

@@ -1,16 +1,20 @@
-"""FL runtime: the eager simulation engine on the device data store, the
-participant-centric sparse engine, the fault processes, the aggregators
-(eq. 3, guarded, participant-subset and scheme-weighted) and the seed,
-scenario, fault and scheme matrices."""
+"""FL runtime: the eager simulation engine on the device, prestack and
+stream data paths, resumable checkpointed runs, the participant-centric
+sparse engine, the fault processes, the aggregators (eq. 3, guarded,
+participant-subset and scheme-weighted) and the seed, scenario, fault and
+scheme matrices."""
 from . import sparse
-from .engine import (MatrixResult, SimConfig, SimResult,
-                     apply_round_decision, check_ported,
-                     grant_forced_bandwidth, make_local_train, make_runner,
-                     resolve_data_path, run_scenario_matrix, run_seed_matrix)
+from .engine import (MatrixResult, RoundTrace, SimConfig, SimResult,
+                     apply_round_decision, build_chunk_sim, check_ported,
+                     grant_forced_bandwidth, init_carry, make_local_train,
+                     make_runner, resolve_data_path, run_scenario_matrix,
+                     run_seed_matrix, stack_round_batches)
 from .faults import (FaultConfig, FaultMatrixResult, FaultOutcome,
                      FaultParams, FaultState, GuardConfig, apply_faults,
                      corrupt_deltas, fault_key, init_fault_state,
                      run_fault_matrix, scale_params)
+from .resume import (completed_segments, read_segment_manifest,
+                     run_resumable, segment_bounds)
 from .schemes import (SchemeMatrixResult, SchemeSpec, default_scheme_panel,
                       run_scheme_matrix, stack_stores)
 from .simulator import run_simulation
@@ -29,6 +33,11 @@ __all__ = ["SimConfig", "SimResult", "apply_round_decision", "check_ported",
            "grant_forced_bandwidth", "make_local_train", "make_runner",
            "run_simulation", "resolve_data_path", "FLState", "ParamLayout",
            "run_seed_matrix", "run_scenario_matrix", "MatrixResult",
+           "RoundTrace", "build_chunk_sim", "init_carry",
+           "stack_round_batches",
+           # resumable runs
+           "run_resumable", "segment_bounds", "completed_segments",
+           "read_segment_manifest",
            # participant-centric sparse rounds
            "sparse", "make_sparse_runner", "resolve_participation",
            "build_participation_program", "build_sparse_train_program",

@@ -1,21 +1,35 @@
-"""Eager FL simulation engine (counterpart of ``repro.fl.engine``, its dense
-path on the device data store).
+"""Eager FL simulation engine (counterpart of ``repro.fl.engine``).
 
 The paper's per-round protocol (§II, Fig. 1) — policy, autonomous Bernoulli
 participation, Δ_k forced transmission, bandwidth reservation, energy ledger
-(eq. 5), local SGD, masked aggregation (eq. 3), broadcast — runs as a Python
-loop over rounds whose tensors all stay on the device; the only readback is
-the stacked per-round trace at the end.  PyTorch is eager, so the JAX
-package's ``lax.scan`` and host-loop engines collapse into this one loop.
+(eq. 5), local SGD, masked aggregation (eq. 3), broadcast — is one round
+transition over an explicit carry ``(FLState, energy[, FaultState])``
+(:func:`init_carry`), applied round after round over *absolute* round ids
+by :func:`build_chunk_sim`.  Its tensors all stay on the device; the only
+readback is the stacked per-round trace (:class:`RoundTrace`).  PyTorch is
+eager, so the JAX package's ``lax.scan`` over a chunk is a Python loop, and
+the single-run engine, the stream runner and the resumable runner
+(:mod:`repro_torch.fl.resume`) all run the same transition: chunking
+changes no bit.
 
 * **PRNG** — participation draws ``uniform(fold_in(PRNGKey(seed), t), (K,))``
   and minibatches come from ``fold_in(data_key, t)`` (``data_stream=
   "round"``) or client by client from ``fold_in(fold_in(data_key, t), k)``
   (``"client"``), bit for bit the JAX streams (:mod:`repro_torch.random`),
   so both packages realize the same masks and train on the same examples.
+* **data paths** — ``"device"``: a :class:`DeviceDataStore` on the device,
+  each round gathered from it; ``"prestack"``: every round's batches drawn
+  up front by the per-client host iterators (:func:`stack_round_batches`);
+  ``"stream"``: the store's blocks on the host, round chunks gathered there
+  and copied ahead of use (:class:`~repro_torch.data.device.
+  StreamingSampler`, ``stream_chunk`` rounds a chunk).  ``"auto"`` picks
+  ``"device"`` or ``"stream"`` by the store's footprint
+  (:func:`resolve_data_path`).
 * **policies** — a ``state_free`` policy is solved once for all rounds (the
   JAX engine's hoisted ``vmap``); any other policy runs each round.
-* **evals** — at ``t % eval_every == 0 or t == rounds - 1``.
+* **evals** — at ``t % eval_every == 0 or t == rounds - 1`` with
+  ``eval_mode="inscan"``; ``"replay"`` evaluates nothing in the loop (the
+  resumable runner evaluates its segment checkpoints afterwards).
 * **aggregation** — as JAX's ``round_step``: ``aggregator`` set →
   ``scheme_aggregate`` (guards fold in), else active ``guards`` →
   ``guarded_aggregate``, both one K1 launch a round in its weighted mode;
@@ -30,19 +44,15 @@ package's ``lax.scan`` and host-loop engines collapse into this one loop.
   corrupt_deltas` poisons the flagged rows before aggregation.  The
   participation masks are the clean run's.
 
-Ported: ``data_path`` ``"device"`` (and ``"auto"``, which resolves to it),
-both ``data_stream`` values, every ``participation`` value (``"sparse"``,
-and ``"auto"`` where its preconditions hold, dispatch to
-:mod:`repro_torch.fl.sparse` as JAX's ``make_runner`` does), both
-``local_mode`` values, ``max_staleness``, ``aging_boost``, ``guards``,
-``aggregator``, ``faults``, ``participant_bucket`` and ``overflow`` (read
-by the sparse runner only).  ``metrics``, ``eval_mode="replay"``,
-``checkpoint_every``, ``stream_chunk`` and the ``"stream"`` and
-``"prestack"`` data paths raise ``NotImplementedError`` naming the field.
+Every ``SimConfig`` setting is ported but ``metrics``, which raises
+``NotImplementedError`` naming the field.  ``participation`` ``"sparse"``
+(and ``"auto"`` where its preconditions hold) dispatches to
+:mod:`repro_torch.fl.sparse` as JAX's ``make_runner`` does.
 
 The matrix sweeps (:func:`run_seed_matrix`, :func:`run_scenario_matrix`)
 run their lanes one after another through the dense runner, the lanes of
-JAX's ``vmap`` of the same program.
+JAX's ``vmap`` of the same program; a resolved ``"stream"`` path runs on
+the device store there, as in JAX.
 """
 from __future__ import annotations
 
@@ -57,9 +67,11 @@ from .. import random as jr
 from .. import resolve_device
 from ..core.channel import CellConfig, rate_nats
 from ..core.selection import _schedule_policy, as_policy_fn, online_policy
-from ..data.device import (DeviceDataStore, data_stream_key,
+from ..data.device import (DeviceDataStore, StreamingSampler,
+                           choose_data_path, data_stream_key,
                            from_client_datasets, sample_round,
                            sample_round_client_stream)
+from ..data.pipeline import BatchIterator, client_batches
 from ..data.synthetic import Dataset
 from ..obs.telemetry import emit_run_manifest, get_telemetry
 from ..optim import Optimizer, sgd
@@ -100,11 +112,7 @@ class SimConfig:
 
 #: settings ported only in part: field -> the values this port runs
 _PORTED = {
-    "data_path": ("auto", "device"),
-    "eval_mode": ("inscan",),
     "metrics": (None,),
-    "checkpoint_every": (None,),
-    "stream_chunk": (256,),
 }
 
 
@@ -119,14 +127,24 @@ def check_ported(cfg: SimConfig) -> None:
     if cfg.local_mode not in ("continuous", "participants"):
         raise ValueError(f"unknown local_mode {cfg.local_mode!r} "
                          "(expected continuous|participants)")
+    if cfg.eval_mode not in ("inscan", "replay"):
+        raise ValueError(f"unknown eval_mode {cfg.eval_mode!r} "
+                         "(expected inscan|replay)")
 
 
-def resolve_data_path(cfg: SimConfig) -> str:
-    """``cfg.data_path`` as a path name, checked as JAX's
-    ``resolve_data_path`` checks it: ``"auto"`` is ``"device"`` here (the
-    port has no stream path), and the per-client stream needs the device
-    path."""
-    path = "device" if cfg.data_path == "auto" else cfg.data_path
+def resolve_data_path(client_data, cfg: SimConfig,
+                      override: str | None = None,
+                      budget_bytes: int | None = None, device=None) -> str:
+    """``cfg.data_path`` (or ``override``) as a path name.
+
+    ``"auto"`` asks :func:`repro_torch.data.device.choose_data_path`: the
+    padded store's footprint (``client_data`` is a list of shards or a
+    built store) against ``budget_bytes``, by default the memory of
+    ``device`` (``None`` means the card); explicit names pass through.  The
+    per-client stream needs the device path, as in JAX."""
+    path = override or cfg.data_path
+    if path == "auto":
+        path = choose_data_path(client_data, budget_bytes, device)
     if path not in ("prestack", "device", "stream"):
         raise ValueError(f"unknown data_path {path!r} "
                          "(expected auto|prestack|device|stream)")
@@ -138,6 +156,16 @@ def resolve_data_path(cfg: SimConfig) -> str:
             "the per-client minibatch stream is defined on the device data "
             f"path only (resolved path: {path!r}); pass data_path='device'")
     return path
+
+
+def _shards(client_data, path: str):
+    """The shard list the host paths read; a built store has none."""
+    if isinstance(client_data, DeviceDataStore):
+        raise ValueError(
+            f"the {path!r} data path reads the client shards on the host; a "
+            "DeviceDataStore has none — pass the list of shards, or "
+            "data_path='device'")
+    return client_data
 
 
 class SimResult(NamedTuple):
@@ -152,6 +180,22 @@ class SimResult(NamedTuple):
     # the server, and those of them that were corrupted; None on clean runs
     delivered: np.ndarray | None = None
     corrupted: np.ndarray | None = None
+
+
+class RoundTrace(NamedTuple):
+    """Per-round outputs of a chunk, stacked over its C rounds.
+
+    ``delivered``/``corrupt`` are ``mask`` and zeros when faults are off;
+    ``acc``/``loss`` are 0 where ``did_eval`` (a host bool array) is
+    False."""
+
+    mask: torch.Tensor       # [C, K] realized participation (the decision)
+    e_round: torch.Tensor    # [C, K] Joules spent (retries included)
+    acc: torch.Tensor        # [C]
+    loss: torch.Tensor       # [C]
+    did_eval: np.ndarray     # [C] bool
+    delivered: torch.Tensor  # [C, K] updates that landed at the server
+    corrupt: torch.Tensor    # [C, K] bool, delivered but poisoned
 
 
 def grant_forced_bandwidth(w: torch.Tensor, forced: torch.Tensor,
@@ -230,32 +274,268 @@ def make_local_train(loss_fn: Callable, opt: Optimizer):
     return local_train
 
 
+def empty_client_batches(client_data: Sequence[Dataset], cfg: SimConfig):
+    """``[K, 0, B, ...]`` placeholder pair for protocol-only runs
+    (``local_iters=0``): local training is a no-op, clients never move."""
+    sample = tuple(client_data[0].x.shape[1:])
+    b = min(cfg.batch_size, min(len(c.y) for c in client_data))
+    return (torch.zeros((len(client_data), 0, b) + sample),
+            torch.zeros((len(client_data), 0, b), dtype=torch.int32))
+
+
+def stack_round_batches(client_data: Sequence[Dataset], cfg: SimConfig,
+                        device=None):
+    """Every round's batches, drawn up front by the per-client host
+    iterators (``BatchIterator(seed=cfg.seed + 17k)``, round-major, local
+    step minor): ``([T, K, L, B, ...], [T, K, L, B])`` on ``device``
+    (``None`` means the card), bit for bit JAX's prestack batches.  The
+    footprint grows with T: T·K·L·B·784 float32 is 125 MB at (T 50, K 16,
+    L 5, B 10)."""
+    device = resolve_device(device)
+    if cfg.local_iters == 0:
+        xb, yb = empty_client_batches(client_data, cfg)
+        return (xb.expand((cfg.rounds,) + xb.shape).to(device),
+                yb.expand((cfg.rounds,) + yb.shape).to(device))
+    iters = [BatchIterator(ds, cfg.batch_size, seed=cfg.seed + 17 * k)
+             for k, ds in enumerate(client_data)]
+    xs, ys = [], []
+    for _ in range(cfg.rounds):
+        step = [client_batches(iters) for _ in range(cfg.local_iters)]
+        xs.append(torch.stack([x for x, _ in step], dim=1))  # [K, L, B, ..]
+        ys.append(torch.stack([y for _, y in step], dim=1))
+    return torch.stack(xs).to(device), torch.stack(ys).to(device)
+
+
+def init_carry(params, num_clients: int, cfg: SimConfig, device=None):
+    """The round transition's carry: ``(FLState, energy [K])``, plus the
+    per-client :class:`~repro_torch.fl.faults.FaultState` with faults on;
+    on ``device`` (``None`` means the card)."""
+    device = resolve_device(device)
+    carry = (init_fl_state(params, num_clients, device=device),
+             torch.zeros(num_clients, dtype=torch.float32, device=device))
+    if cfg.faults is not None:
+        carry = carry + (init_fault_state(num_clients, device),)
+    return carry
+
+
+def _make_round_step(local_train: Callable, loss_fn: Callable,
+                     acc_fn: Callable, cfg: SimConfig, cell: CellConfig,
+                     num_clients: int, policy_fn):
+    """The round transition every execution mode shares: protocol Steps
+    1-5, the fault pipeline, the energy ledger, the aggregators and the
+    strided eval.  ``round_step(carry, t, h_t, xb, yb, pw, base_key,
+    test_x, test_y, fp, ap) -> (carry, (mask, e_round, acc, loss, did_eval,
+    delivered, corrupt))`` for the absolute round ``t``; ``pw`` is the
+    hoisted ``(probs, w)`` of the round, or ``None`` to ask the policy."""
+    K = num_clients
+    faults = cfg.faults
+    guards = cfg.guards if cfg.guards is not None and cfg.guards.active \
+        else None
+    check_ported(cfg)
+
+    def round_step(carry, t, h_t, xb, yb, pw, base_key, test_x, test_y,
+                   fp=None, ap=None):
+        state, energy = carry[0], carry[1]
+        probs, w = pw if pw is not None else policy_fn(t, h_t, state)
+        mask, _, w, e_round = apply_round_decision(
+            probs, w, t, h_t, state, base_key, cfg, cell, K)
+        delivered, corrupt = mask, None
+        if faults is not None:   # what lands, on the salted streams
+            out, fstate = apply_faults(t, base_key, mask, e_round, carry[2],
+                                       fp, faults)
+            delivered, corrupt, e_round = out.delivered, out.corrupt, \
+                out.e_round
+        energy = energy + e_round
+        layout = state.layout
+        client = local_train(state.client_params, xb, yb, layout)
+        if cfg.local_mode == "participants":
+            # only clients whose update lands move; the rest keep
+            # client == anchor, so their pseudo-gradient stays zero
+            client = torch.where(delivered.bool()[:, None], client,
+                                 state.client_params)
+        state = state._replace(client_params=client)
+        deltas = pseudo_gradients(state)
+        if faults is not None:
+            deltas = corrupt_deltas(deltas, corrupt, fp, faults)
+        if ap is not None or guards is not None:
+            staleness = state.round - state.last_tx
+        if ap is not None:   # probs: nominal, before the aging boost
+            new_global = scheme_aggregate(
+                state.global_params, deltas, delivered, K, staleness,
+                probs, ap, guards=guards)
+        elif guards is not None:
+            new_global = guarded_aggregate(state.global_params, deltas,
+                                           delivered, K, staleness, guards)
+        else:
+            new_global = masked_aggregate(state.global_params, deltas,
+                                          delivered, K)
+        state = broadcast_to_participants(state, new_global, delivered)
+        did = cfg.eval_mode == "inscan" and (t % cfg.eval_every == 0
+                                             or t == cfg.rounds - 1)
+        acc = loss = None
+        if did:
+            g = layout.unflatten(state.global_params)
+            acc = acc_fn(g, test_x, test_y).to(torch.float32)
+            loss = loss_fn(g, test_x, test_y).to(torch.float32)
+        carry = (state, energy) + ((fstate,) if faults is not None else ())
+        return carry, (mask, e_round, acc, loss, did, delivered, corrupt)
+
+    return round_step
+
+
+def _stack_trace(rows: list, device) -> RoundTrace:
+    """One chunk's per-round outputs as a :class:`RoundTrace`."""
+    mask, e_round, acc, loss, did, delivered, corrupt = zip(*rows)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    masks = torch.stack(mask)
+    return RoundTrace(
+        mask=masks, e_round=torch.stack(e_round),
+        acc=torch.stack([zero if a is None else a for a in acc]),
+        loss=torch.stack([zero if v is None else v for v in loss]),
+        did_eval=np.asarray(did, dtype=bool),
+        delivered=(masks if delivered[0] is mask[0]
+                   else torch.stack(delivered)),
+        corrupt=(torch.zeros_like(masks, dtype=torch.bool)
+                 if corrupt[0] is None else torch.stack(corrupt)))
+
+
+def concat_traces(traces: Sequence[RoundTrace]) -> RoundTrace:
+    """Chunks' traces joined along the round axis."""
+    return RoundTrace(*[
+        np.concatenate(xs) if isinstance(xs[0], np.ndarray)
+        else torch.cat(xs) for xs in zip(*traces)])
+
+
+def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
+                    cfg: SimConfig, cell: CellConfig, num_clients: int,
+                    policy_fn, data_mode: str = "prestack"):
+    """The round transition over one chunk of rounds with an explicit carry
+    (:func:`init_carry`), JAX's ``build_chunk_sim``.
+
+    ``data_mode="prestack"``: ``chunk(carry, ts, h, xb, yb, pw, base_key,
+    test_x, test_y, fault_params=None, agg_params=None)`` with chunk-major
+    batches ``[C, K, L, B, ...]``; ``data_mode="device"``: ``chunk(carry,
+    ts, h, pw, store, data_key, base_key, test_x, test_y,
+    fault_params=None, agg_params=None)`` gathers each round from the
+    store.  ``ts`` are the absolute round ids (so the ``fold_in`` streams
+    and the eval stride are a single run's), ``h`` their ``[C, K]`` gains
+    and ``pw`` their hoisted ``(probs, w)`` ``[C, K]`` each, or ``None``
+    for a policy asked round by round.  Returns ``(carry, RoundTrace)``;
+    ``chunk.hoist`` says whether the policy is hoisted.
+    """
+    policy_fn = as_policy_fn(policy_fn)
+    round_step = _make_round_step(make_local_train(loss_fn, opt), loss_fn,
+                                  acc_fn, cfg, cell, num_clients, policy_fn)
+    if data_mode not in ("prestack", "device"):
+        raise ValueError(f"unknown data_mode {data_mode!r}")
+    sample = (sample_round_client_stream if cfg.data_stream == "client"
+              else sample_round)
+
+    def run(carry, ts, h, batches, pw, base_key, test_x, test_y,
+            fault_params, agg_params):
+        device = carry[1].device
+        fp = ap = None
+        if cfg.faults is not None:
+            fp = (cfg.faults.params(device) if fault_params is None
+                  else fault_params)
+        if cfg.aggregator is not None:
+            ap = (cfg.aggregator.params(device) if agg_params is None
+                  else agg_params)
+        rows = []
+        for i, t in enumerate(ts):
+            xb, yb = batches(i, int(t))
+            carry, row = round_step(
+                carry, int(t), h[i], xb, yb,
+                None if pw is None else (pw[0][i], pw[1][i]), base_key,
+                test_x, test_y, fp, ap)
+            rows.append(row)
+        return carry, _stack_trace(rows, device)
+
+    if data_mode == "prestack":
+        def chunk(carry, ts, h, xb, yb, pw, base_key, test_x, test_y,
+                  fault_params=None, agg_params=None):
+            return run(carry, ts, h, lambda i, t: (xb[i], yb[i]), pw,
+                       base_key, test_x, test_y, fault_params, agg_params)
+    else:
+        def chunk(carry, ts, h, pw, store, data_key, base_key, test_x,
+                  test_y, fault_params=None, agg_params=None):
+            def batches(i, t):
+                return sample(store, data_key, t, cfg.local_iters,
+                              cfg.batch_size)
+
+            return run(carry, ts, h, batches, pw, base_key, test_x, test_y,
+                       fault_params, agg_params)
+
+    chunk.hoist = getattr(policy_fn, "state_free", False)
+    return chunk
+
+
+def hoisted_policy(policy_fn, h_rounds: torch.Tensor):
+    """Every round's ``(probs, w)`` ``[T, K]`` of a state-free policy at
+    once (the (P1') solves batched), or ``None`` for any other policy."""
+    if not getattr(policy_fn, "state_free", False):
+        return None
+    T = h_rounds.shape[0]
+    return policy_fn(torch.arange(T, device=h_rounds.device), h_rounds, None)
+
+
+def _to_result(carry, trace: RoundTrace, cfg: SimConfig) -> SimResult:
+    """The end-of-run readback: a :class:`SimResult` from the final carry
+    and the whole run's trace."""
+    idx = np.where(trace.did_eval)[0]
+    e_round = trace.e_round.cpu().numpy()
+    faulty = cfg.faults is not None
+    return SimResult(
+        test_acc=trace.acc.cpu().numpy()[idx],
+        test_loss=trace.loss.cpu().numpy()[idx],
+        eval_rounds=idx,
+        energy_per_client=carry[1].cpu().numpy(),
+        energy_timeline=np.cumsum(e_round.sum(axis=1)),
+        participation=trace.mask.cpu().numpy(),
+        state=carry[0],
+        delivered=(trace.delivered.to(torch.float32).cpu().numpy()
+                   if faulty else None),
+        corrupted=(trace.corrupt.to(torch.float32).cpu().numpy()
+                   if faulty else None))
+
+
 def make_runner(loss_fn: Callable, acc_fn: Callable,
                 client_data: Sequence[Dataset] | DeviceDataStore,
                 test_ds: Dataset, policy, cell: CellConfig, cfg: SimConfig,
-                opt: Optimizer | None = None, device=None) -> Callable:
-    """Build the device data store once and return
-    ``runner(params, h_all, seed=None) -> SimResult``.
+                opt: Optimizer | None = None, device=None,
+                data_path: str | None = None,
+                data_budget_bytes: int | None = None) -> Callable:
+    """Build the data source once and return ``runner(params, h_all,
+    seed=None) -> SimResult``.
 
     ``h_all`` is ``[K, rounds]``; ``device=None`` means the card;
     ``client_data`` is a list of shards or a :class:`DeviceDataStore`
-    already on ``device``.  Where ``cfg.participation`` resolves to
-    ``"sparse"`` (:func:`repro_torch.fl.sparse.resolve_participation`) the
-    runner is :func:`repro_torch.fl.sparse.make_sparse_runner`'s, else the
-    dense engine's.
+    already on ``device`` (the device path only).  ``data_path`` overrides
+    ``cfg.data_path``; ``"auto"`` resolves by footprint against
+    ``data_budget_bytes`` (default: the device's memory).  Where
+    ``cfg.participation`` resolves to ``"sparse"``
+    (:func:`repro_torch.fl.sparse.resolve_participation`) the runner is
+    :func:`repro_torch.fl.sparse.make_sparse_runner`'s; on the stream path
+    it is the stream runner; else the dense engine's.
     """
     from .sparse import make_sparse_runner, resolve_participation
 
     policy_fn = as_policy_fn(policy)
-    path = resolve_data_path(cfg)
+    path = resolve_data_path(client_data, cfg, data_path, data_budget_bytes,
+                             device)
     K = _num_clients(client_data)
     if resolve_participation(cfg, policy_fn, path, K) == "sparse":
         # opt passed as given: the sparse runner keys its phase-B cache on
         # the default optimizer's (kind, lr)
         return make_sparse_runner(loss_fn, acc_fn, client_data, test_ds,
                                   policy_fn, cell, cfg, opt, device=device)
+    if path == "stream":
+        return _make_stream_runner(loss_fn, acc_fn, _shards(client_data,
+                                                            path),
+                                   test_ds, policy_fn, cell, cfg, opt,
+                                   device=device)
     return _dense_runner(loss_fn, acc_fn, client_data, test_ds, policy_fn,
-                         cell, cfg, opt, device=device)
+                         cell, cfg, opt, device=device, data_path=path)
 
 
 def _num_clients(client_data) -> int:
@@ -290,122 +570,64 @@ def solve_once(policy, h_all: torch.Tensor):
     share ``h_all`` then share the solve, with the bits of solving it
     again."""
     fn = as_policy_fn(policy)
-    if not getattr(fn, "state_free", False):
+    pw = hoisted_policy(fn, h_all.T)
+    if pw is None:
         return fn
-    T = h_all.shape[1]
-    probs, w = fn(torch.arange(T, device=h_all.device), h_all.T, None)
-    return _schedule_policy(types.SimpleNamespace(p=probs.T, w=w.T))
+    return _schedule_policy(types.SimpleNamespace(p=pw[0].T, w=pw[1].T))
+
+
+def _test_slice(test_ds: Dataset, cfg: SimConfig, device):
+    return (test_ds.x[: cfg.eval_batch].to(device),
+            test_ds.y[: cfg.eval_batch].to(device))
+
+
+def _gains(h_all, device) -> torch.Tensor:
+    """``h_all [K, T]`` as round-major ``[T, K]`` float32 on ``device``."""
+    return torch.as_tensor(h_all, dtype=torch.float32).to(device).T
 
 
 def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
                   test_ds: Dataset, policy, cell: CellConfig, cfg: SimConfig,
-                  opt: Optimizer | None = None, device=None) -> Callable:
+                  opt: Optimizer | None = None, device=None,
+                  data_path: str = "device") -> Callable:
     """The dense engine's ``runner(params, h_all, seed=None,
-    fault_params=None, agg_params=None) -> SimResult``.  The two keywords
-    replace ``cfg.faults.params()`` and ``cfg.aggregator.params()`` for one
-    run: what the matrix sweeps sweep."""
+    fault_params=None, agg_params=None) -> SimResult`` on the device store
+    (``data_path="device"``) or the prestack batches (``"prestack"``, built
+    here once).  The two keywords replace ``cfg.faults.params()`` and
+    ``cfg.aggregator.params()`` for one run: what the matrix sweeps
+    sweep."""
     policy_fn = as_policy_fn(policy)
-    resolve_data_path(cfg)
-    check_ported(cfg)
+    resolve_data_path(client_data, cfg, data_path)
     device = resolve_device(device)
-    store = _as_store(client_data, device)
-    K = store.num_clients
+    chunk = build_chunk_sim(loss_fn, acc_fn, opt or sgd(cfg.lr), cfg, cell,
+                            _num_clients(client_data), policy_fn,
+                            data_mode=data_path)
+    if data_path == "prestack":
+        shards = _shards(client_data, data_path)
+        K = len(shards)
+        xb_all, yb_all = stack_round_batches(shards, cfg, device)
+    else:
+        store = _as_store(client_data, device)
+        K = store.num_clients
+        data_key = data_stream_key(cfg.seed, device=device)
+    test_x, test_y = _test_slice(test_ds, cfg, device)
     T = cfg.rounds
-    hoist = getattr(policy_fn, "state_free", False)
-    faults = cfg.faults
-    guards = cfg.guards if cfg.guards is not None and cfg.guards.active \
-        else None
-    opt = opt or sgd(cfg.lr)
-    local_train = make_local_train(loss_fn, opt)
-    sample = (sample_round_client_stream if cfg.data_stream == "client"
-              else sample_round)
-    data_key = data_stream_key(cfg.seed, device=device)
-    test_x = test_ds.x[: cfg.eval_batch].to(device)
-    test_y = test_ds.y[: cfg.eval_batch].to(device)
 
     @torch.no_grad()
     def run(params, h_all, seed: int | None = None, fault_params=None,
             agg_params=None) -> tuple[SimResult, np.ndarray]:
         key = jr.PRNGKey(cfg.seed if seed is None else seed, device=device)
-        h_rounds = torch.as_tensor(h_all, dtype=torch.float32).to(device).T
-        state = init_fl_state(params, K, device=device)
-        layout = state.layout
-        ap = None
-        if cfg.aggregator is not None:
-            ap = (cfg.aggregator.params(device) if agg_params is None
-                  else agg_params)
-        if faults is not None:
-            fp = faults.params(device) if fault_params is None \
-                else fault_params
-            fstate = init_fault_state(K, device)
-        if hoist:   # every round's policy (the (P1') solves) at once
-            probs_all, w_all = policy_fn(torch.arange(T, device=device),
-                                         h_rounds, None)
-        energy = torch.zeros(K, dtype=torch.float32, device=device)
-        masks, e_rounds, accs, losses, eval_rounds = [], [], [], [], []
-        delivers, corrupts = [], []
-        for t in range(T):
-            h_t = h_rounds[t]
-            probs, w = ((probs_all[t], w_all[t]) if hoist
-                        else policy_fn(t, h_t, state))
-            mask, _, w, e_round = apply_round_decision(
-                probs, w, t, h_t, state, key, cfg, cell, K)
-            delivered = mask
-            if faults is not None:   # what lands, on the salted streams
-                out, fstate = apply_faults(t, key, mask, e_round, fstate,
-                                           fp, faults)
-                delivered, e_round = out.delivered, out.e_round
-                delivers.append(delivered)
-                corrupts.append(out.corrupt)
-            energy = energy + e_round
-            xb, yb = sample(store, data_key, t, cfg.local_iters,
-                            cfg.batch_size)
-            client = local_train(state.client_params, xb, yb, layout)
-            if cfg.local_mode == "participants":
-                # only clients whose update lands move; the rest keep
-                # client == anchor, so their pseudo-gradient stays zero
-                client = torch.where(delivered.bool()[:, None], client,
-                                     state.client_params)
-            state = state._replace(client_params=client)
-            deltas = pseudo_gradients(state)
-            if faults is not None:
-                deltas = corrupt_deltas(deltas, out.corrupt, fp, faults)
-            if ap is not None or guards is not None:
-                staleness = state.round - state.last_tx
-            if ap is not None:   # probs: nominal, before the aging boost
-                new_global = scheme_aggregate(
-                    state.global_params, deltas, delivered, K, staleness,
-                    probs, ap, guards=guards)
-            elif guards is not None:
-                new_global = guarded_aggregate(state.global_params, deltas,
-                                               delivered, K, staleness,
-                                               guards)
-            else:
-                new_global = masked_aggregate(state.global_params, deltas,
-                                              delivered, K)
-            state = broadcast_to_participants(state, new_global, delivered)
-            if t % cfg.eval_every == 0 or t == T - 1:
-                g = layout.unflatten(state.global_params)
-                accs.append(acc_fn(g, test_x, test_y))
-                losses.append(loss_fn(g, test_x, test_y))
-                eval_rounds.append(t)
-            masks.append(mask)
-            e_rounds.append(e_round)
-        e_round_all = torch.stack(e_rounds).cpu().numpy()
-
-        def trace(rows):
-            return (torch.stack(rows).to(torch.float32).cpu().numpy()
-                    if faults is not None else None)
-
-        return SimResult(
-            test_acc=torch.stack(accs).cpu().numpy(),
-            test_loss=torch.stack(losses).cpu().numpy(),
-            eval_rounds=np.asarray(eval_rounds),
-            energy_per_client=energy.cpu().numpy(),
-            energy_timeline=np.cumsum(e_round_all.sum(axis=1)),
-            participation=torch.stack(masks).cpu().numpy(),
-            state=state, delivered=trace(delivers),
-            corrupted=trace(corrupts)), e_round_all
+        h_rounds = _gains(h_all, device)
+        pw = hoisted_policy(policy_fn, h_rounds)
+        carry = init_carry(params, K, cfg, device)
+        if data_path == "prestack":
+            carry, tr = chunk(carry, range(T), h_rounds, xb_all, yb_all, pw,
+                              key, test_x, test_y, fault_params, agg_params)
+        else:
+            carry, tr = chunk(carry, range(T), h_rounds, pw, store,
+                              data_key, key, test_x, test_y, fault_params,
+                              agg_params)
+        return _to_result(carry, tr, cfg), tr.e_round.cpu().numpy()
 
     def runner(params, h_all, seed: int | None = None, fault_params=None,
                agg_params=None) -> SimResult:
@@ -413,6 +635,53 @@ def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
 
     # the run with its per-round energy [T, K] beside it (the matrices')
     runner.with_e_round = run
+    return runner
+
+
+def _make_stream_runner(loss_fn: Callable, acc_fn: Callable,
+                        client_data: Sequence[Dataset], test_ds: Dataset,
+                        policy_fn, cell: CellConfig, cfg: SimConfig,
+                        opt: Optimizer | None = None,
+                        device=None) -> Callable:
+    """Host streaming: the horizon in ``cfg.stream_chunk``-round chunks;
+    chunk ``i+1``'s batches are gathered on the host (the device store's
+    index stream, so the same bits) and copied while chunk ``i`` computes,
+    so the device holds about two chunks of data whatever T and the
+    dataset size.  ``runner(params, h_all, seed=None, fault_params=None,
+    agg_params=None) -> SimResult``; ``runner.sampler`` is the
+    :class:`StreamingSampler`."""
+    device = resolve_device(device)
+    K = len(client_data)
+    T = cfg.rounds
+    sampler = StreamingSampler(client_data, data_stream_key(cfg.seed),
+                               cfg.local_iters, cfg.batch_size,
+                               device=device)
+    chunk = build_chunk_sim(loss_fn, acc_fn, opt or sgd(cfg.lr), cfg, cell,
+                            K, policy_fn, data_mode="prestack")
+    test_x, test_y = _test_slice(test_ds, cfg, device)
+    C = max(1, int(cfg.stream_chunk))
+    bounds = [(t0, min(t0 + C, T)) for t0 in range(0, T, C)]
+
+    @torch.no_grad()
+    def runner(params, h_all, seed: int | None = None, fault_params=None,
+               agg_params=None) -> SimResult:
+        key = jr.PRNGKey(cfg.seed if seed is None else seed, device=device)
+        h_rounds = _gains(h_all, device)
+        pw = hoisted_policy(policy_fn, h_rounds)
+        carry = init_carry(params, K, cfg, device)
+        buf = sampler.chunk(*bounds[0])
+        traces = []
+        for i, (t0, t1) in enumerate(bounds):
+            carry, tr = chunk(carry, range(t0, t1), h_rounds[t0:t1], *buf,
+                              None if pw is None
+                              else (pw[0][t0:t1], pw[1][t0:t1]),
+                              key, test_x, test_y, fault_params, agg_params)
+            traces.append(tr)
+            if i + 1 < len(bounds):   # the copy overlaps the chunk in flight
+                buf = sampler.chunk(*bounds[i + 1])
+        return _to_result(carry, concat_traces(traces), cfg)
+
+    runner.sampler = sampler
     return runner
 
 
@@ -461,23 +730,34 @@ def _lanes_check(h_stack, seeds, cfg: SimConfig) -> torch.Tensor:
     return h
 
 
+def matrix_data(client_data, cfg: SimConfig, device):
+    """A matrix sweep's data and path: the shards on the prestack path,
+    else the store on ``device``; a resolved ``"stream"`` path runs on the
+    device store, as in JAX (the lanes share one store)."""
+    path = resolve_data_path(client_data, cfg, device=device)
+    if path == "prestack":
+        return _shards(client_data, path), path
+    return _as_store(client_data, device), "device"
+
+
 def run_seed_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
                     policy, h_stack, cell: CellConfig, cfg: SimConfig,
                     seeds: Sequence[int], opt: Optimizer | None = None,
                     device=None) -> MatrixResult:
     """One policy over scenario lanes: ``h_stack [S, K, T]`` holds one
     channel realization a lane, ``seeds`` each lane's participation stream.
-    The data (one store) and its minibatch stream (``cfg.seed``) are shared
-    by every lane.  Each lane is one run of the dense engine on ``device``
-    (``None`` means the card); leading axis ``[S]``."""
+    The data (one store, or the prestack batches) and its minibatch stream
+    (``cfg.seed``) are shared by every lane.  Each lane is one run of the
+    dense engine on ``device`` (``None`` means the card); leading axis
+    ``[S]``."""
     device = resolve_device(device)
     h = _lanes_check(h_stack, seeds, cfg)
-    store = _as_store(client_data, device)
-    runner = _dense_runner(loss_fn, acc_fn, store, test_ds, policy, cell,
-                           cfg, opt, device=device)
+    data, path = matrix_data(client_data, cfg, device)
+    runner = _dense_runner(loss_fn, acc_fn, data, test_ds, policy, cell,
+                           cfg, opt, device=device, data_path=path)
     emit_run_manifest("run_seed_matrix", cfg,
                       extra={"lanes": len(seeds),
-                             "num_clients": store.num_clients})
+                             "num_clients": _num_clients(data)})
     with get_telemetry().span("seed_matrix.execute"):
         lanes = [runner.with_e_round(init_params, h[s], seed=int(seed))
                  for s, seed in enumerate(seeds)]
@@ -496,18 +776,19 @@ def run_scenario_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
     check_ported(cfg)
     device = resolve_device(device)
     h = _lanes_check(h_stack, seeds, cfg)
-    store = _as_store(client_data, device)
+    data, path = matrix_data(client_data, cfg, device)
     emit_run_manifest("run_scenario_matrix", cfg,
                       extra={"rhos": len(rhos), "lanes": len(seeds),
-                             "num_clients": store.num_clients})
+                             "num_clients": _num_clients(data)})
     lanes = []
     with get_telemetry().span("scenario_matrix.execute"):
         for rho in rhos:
             rho_t = torch.tensor(float(rho), dtype=torch.float32,
                                  device=device)
-            runner = _dense_runner(loss_fn, acc_fn, store, test_ds,
+            runner = _dense_runner(loss_fn, acc_fn, data, test_ds,
                                    online_policy(spec, rho=rho_t),
-                                   spec.cell, cfg, opt, device=device)
+                                   spec.cell, cfg, opt, device=device,
+                                   data_path=path)
             lanes += [runner.with_e_round(init_params, h[s], seed=int(seed))
                       for s, seed in enumerate(seeds)]
     return _matrix_result(lanes, (len(rhos), len(seeds)))

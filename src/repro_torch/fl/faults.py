@@ -380,7 +380,7 @@ def run_fault_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
     flat row's pad columns.
     """
     from ..obs.telemetry import emit_run_manifest, get_telemetry
-    from .engine import _dense_runner, solve_once
+    from .engine import _dense_runner, matrix_data, solve_once
 
     if cfg.faults is None:
         raise ValueError("run_fault_matrix needs SimConfig(faults=...)")
@@ -393,14 +393,16 @@ def run_fault_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
     fps = [scale_params(base_fp, float(r)) for r in rates_arr]
     h_all = torch.as_tensor(h_all, dtype=torch.float32).to(device)
     policy_fn = solve_once(policy, h_all)
+    data, path = matrix_data(client_data, cfg, device)
     emit_run_manifest("run_fault_matrix", cfg,
                       extra={"rates": len(fps), "num_clients": K})
     out_acc, out_loss, out_energy, out_del, out_fin = {}, {}, {}, {}, {}
     eval_rounds = None
     for name, guards in (("unguarded", None), ("guarded", guard)):
         runner = _dense_runner(
-            loss_fn, acc_fn, client_data, test_ds, policy_fn, cell,
-            dataclasses.replace(cfg, guards=guards), device=device)
+            loss_fn, acc_fn, data, test_ds, policy_fn, cell,
+            dataclasses.replace(cfg, guards=guards), device=device,
+            data_path=path)
         with get_telemetry().span("fault_matrix.execute"):
             lanes = [runner(init_params, h_all, fault_params=fp)
                      for fp in fps]

@@ -13,6 +13,9 @@ counts the launches, ``fl_aggregate_cuda.guarded_launches`` those of them in
 the weighted (guarded) mode, ``guard=True``, and
 ``fl_aggregate_cuda.subset_launches`` those in the subset mode,
 ``subset=True`` (the same kernel: the flag only names the mode).
+``fl_aggregate_cuda.shapes`` collects the ``(mode, dtype, R, M)`` of the
+launches, so a caller can check that every shape it ran was held against
+the plain version.
 """
 from __future__ import annotations
 
@@ -161,9 +164,13 @@ def fl_aggregate_cuda(global_p: torch.Tensor, deltas: torch.Tensor,
     fl_aggregate_cuda.launches += 1
     fl_aggregate_cuda.guarded_launches += bool(guard)
     fl_aggregate_cuda.subset_launches += bool(subset)
+    fl_aggregate_cuda.shapes.add(
+        ("guarded" if guard else "subset" if subset else "plain",
+         str(global_p.dtype).removeprefix("torch."), R, M))
     return out
 
 
 fl_aggregate_cuda.launches = 0
 fl_aggregate_cuda.guarded_launches = 0
 fl_aggregate_cuda.subset_launches = 0
+fl_aggregate_cuda.shapes = set()

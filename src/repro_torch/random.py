@@ -18,6 +18,15 @@ once this way).  Every uint32 operation is emulated in int64 with a
 ``& 0xFFFFFFFF`` mask after each add and rotate, on the key's own device, so
 no uint32 kernel support is needed.  Samplers compute on ``device`` when it
 is given, else on the key's device.
+
+The partitioners' draws (:func:`permutation`, :func:`gumbel`,
+:func:`loggamma`, :func:`dirichlet`) follow JAX 0.9.0's algorithms.
+``permutation`` is integer and bit-exact.  The float draws take every
+``log``, ``log1p``, ``exp`` and ``sqrt`` in float64 and round once
+(:func:`_f64`): XLA's float32 transcendentals are not correctly rounded,
+and neither are torch's, so no float32 choice matches XLA everywhere, but
+this one gives the card and the CPU the same bits.  They agree with JAX to
+a few ulp.
 """
 from __future__ import annotations
 
@@ -209,3 +218,159 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int,
     offset = ((prod + lower % span) & MASK) % span
     out = (lo_i + offset + 2 ** 31) & MASK   # int32 wrap-around
     return (out - 2 ** 31).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the partitioners' draws: permutation, gumbel, loggamma, dirichlet
+# ---------------------------------------------------------------------------
+
+#: float32's smallest normal number (``finfo(float32).tiny``)
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _f64(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of float32 ``x`` taken in float64 and rounded once to
+    float32: the correctly rounded value (to float64's own error), the same
+    on the card and on the CPU."""
+    return fn(x.to(torch.float64)).to(torch.float32)
+
+
+def permutation(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: int32 ``[..., n]`` for keys
+    ``[..., 2]``, bit-exact.
+
+    JAX's ``_shuffle``: ``ceil(3·ln n / ln(2³²−1))`` rounds (one up to
+    n = 1,625, two from 1,626 to well past 10⁶), each ``key, sub =
+    split(key)``, 32-bit ``random_bits(sub, (n,))`` and a *stable*
+    key-value sort.  32-bit keys collide (at n = 60,000 a tie is likely),
+    so the stability is part of the stream."""
+    key = key.to(device) if device is not None else key
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int32, device=key.device)
+    x = x.expand(key.shape[:-1] + (n,))
+    for _ in range(rounds):
+        key, sub = split(key).unbind(-2)
+        bits = random_bits(sub, (n,))
+        order = torch.sort(bits, dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x.contiguous()
+
+
+def gumbel(key: torch.Tensor, shape=(), device=None) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, mode ``"low"`` (the default):
+    ``−log(−log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
+    u = uniform(key, shape, minval=_TINY, maxval=1.0, device=device)
+    return -_f64(torch.log, -_f64(torch.log, u))
+
+
+def _normal_f64(key: torch.Tensor) -> torch.Tensor:
+    """One float32 standard normal per key ``[..., 2]`` (``normal(key,
+    ())``), with erfinv's ``log1p`` and ``sqrt`` in float64 rounded once."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = _bits_to_uniform(random_bits(key, ()), lo, 1.0)
+    w = -_f64(torch.log1p, -u * u)
+    central = w < 5.0
+    w = torch.where(central, w - 2.5, _f64(torch.sqrt, w) - 3.0)
+    p = torch.where(central, _ERFINV_CENTRAL[0], _ERFINV_TAIL[0])
+    for c_in, c_out in zip(_ERFINV_CENTRAL[1:], _ERFINV_TAIL[1:]):
+        p = torch.where(central, c_in, c_out) + p * w
+    x = torch.where(u.abs() == 1.0, u * torch.inf, p * u)
+    return x * float(np.float32(np.sqrt(2.0)))
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+def _gamma_lanes(keys: torch.Tensor, alpha: torch.Tensor, log_space: bool):
+    """JAX's ``_gamma_one(key, alpha, log_space)`` (Marsaglia–Tsang) for
+    every lane at once: ``keys [N, 2]``, float32 ``alpha [N]``.
+
+    Each lane follows its own key chain through the rejection loop and the
+    inner ``v > 0`` loop; a mask keeps the lanes still running, and a loop
+    ends when none is (``vmap`` of JAX's ``while_loop``).  Below α = 1 the
+    boost is ``log1p(−u) · (1/α)`` in log space (kept at 0 where
+    ``log1p(−u)`` is 0), else ``(1 − u)^(1/α)``."""
+    third = _f32(1.0 / 3.0)
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - third
+    c = third / _f64(torch.sqrt, d)
+    key, subkey = split(keys).unbind(-2)
+    n = alpha.shape[0]
+    X = torch.zeros(n, dtype=torch.float32, device=alpha.device)
+    V = torch.ones_like(X)
+    U = torch.full_like(X, 2.0)
+    run = torch.ones(n, dtype=torch.bool, device=alpha.device)
+    while bool(run.any()):
+        lanes = run.nonzero().squeeze(-1)
+        key_l, x_key, u_key = split(key[lanes], 3).unbind(-2)
+        c_l = c[lanes]
+        x = torch.zeros(lanes.shape[0], dtype=torch.float32,
+                        device=alpha.device)
+        v = torch.full_like(x, -1.0)
+        inner = torch.ones_like(x, dtype=torch.bool)
+        while bool(inner.any()):
+            il = inner.nonzero().squeeze(-1)
+            x_key_i, sub = split(x_key[il]).unbind(-2)
+            x_i = _normal_f64(sub)
+            x_key[il] = x_key_i
+            x[il] = x_i
+            v[il] = 1.0 + x_i * c_l[il]
+            inner = v <= 0.0
+        key[lanes] = key_l
+        X[lanes] = x * x
+        V[lanes] = (v * v) * v
+        U[lanes] = uniform(u_key, ())
+        # reject (run again) while both of Marsaglia–Tsang's tests fail
+        run = (U >= 1.0 - _f32(0.0331) * (X * X)) & (
+            _f64(torch.log, U) >= X * 0.5 + d * ((1.0 - V)
+                                                 + _f64(torch.log, V)))
+    if log_space:
+        log_samples = _f64(torch.log1p, -uniform(subkey, ()))
+        log_boost = torch.where(boost | (log_samples == 0.0), 0.0,
+                                log_samples * (1.0 / alpha))
+        return (_f64(torch.log, d) + _f64(torch.log, V)) + log_boost
+    samples = 1.0 - uniform(subkey, ())
+    inv = (1.0 / alpha).to(torch.float64)
+    power = torch.pow(samples.to(torch.float64), inv).to(torch.float32)
+    return (d * V) * torch.where(boost, 1.0, power)
+
+
+def _gamma(key, a, shape, device, log_space: bool) -> torch.Tensor:
+    """JAX's ``_gamma_impl``: the key split into one key per element
+    (row-major), each element its own chain."""
+    key = key.to(device) if device is not None else key
+    a = torch.as_tensor(a, dtype=torch.float32, device=key.device)
+    shape = tuple(a.shape) if shape is None else tuple(shape)
+    alpha = a.expand(shape).reshape(-1).contiguous()
+    keys = split(key, alpha.shape[0])
+    return _gamma_lanes(keys, alpha, log_space).reshape(shape)
+
+
+def gamma(key: torch.Tensor, a, shape=None, device=None) -> torch.Tensor:
+    """``jax.random.gamma``: float32 Gamma(a) samples of ``shape``
+    (``a``'s shape when None) for one key ``[2]``."""
+    return _gamma(key, a, shape, device, log_space=False)
+
+
+def loggamma(key: torch.Tensor, a, shape=None, device=None) -> torch.Tensor:
+    """``jax.random.loggamma``: the same chains as :func:`gamma`, returned
+    as logs, with the small-α boost taken in log space."""
+    return _gamma(key, a, shape, device, log_space=True)
+
+
+def dirichlet(key: torch.Tensor, alpha, shape=(), device=None) -> torch.Tensor:
+    """``jax.random.dirichlet(key, alpha, shape)``: float32 ``shape +
+    (C,)``, the softmax of ``loggamma(key, alpha, shape + (C,))``.  The
+    softmax adds its C terms one after another, XLA's order on the CPU for
+    short rows."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32)
+    lg = loggamma(key, alpha.to(key.device if device is None else device),
+                  tuple(shape) + tuple(alpha.shape[-1:]), device)
+    z = _f64(torch.exp, lg - lg.max(dim=-1, keepdim=True).values)
+    total = z[..., :1]
+    for j in range(1, z.shape[-1]):
+        total = total + z[..., j:j + 1]
+    return z / total

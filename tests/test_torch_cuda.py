@@ -1,7 +1,10 @@
 """The port on an NVIDIA card: K1 (fl_aggregate) against its plain version,
 a small simulation on the card against the same run on the CPU, the sparse
-engine against the dense one on the card, and faulty runs and a scheme
-matrix on the card against the CPU.
+engine against the dense one on the card, faulty runs and a scheme matrix
+on the card against the CPU, the stream path against the device path and
+a killed-and-resumed run against an uninterrupted one on the card, the
+stream sampler's pinned side-stream copy, and ``shard_store`` on the card
+against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no card.  This
 file imports neither JAX nor the JAX package, so it also runs on a host that
@@ -19,12 +22,15 @@ from repro_torch import random as jr
 from repro_torch.core import CellConfig
 from repro_torch.core.channel import channel_gains, sample_positions
 from repro_torch.core.selection import AgeAwareScheme, RandomScheme
-from repro_torch.data import (Dataset, DeviceDataStore, make_mnist_like,
-                              shard_noniid)
+from repro_torch.data import (Dataset, DeviceDataStore, StreamingSampler,
+                              data_stream_key, from_client_datasets,
+                              make_mnist_like, shard_noniid, shard_store,
+                              stack_rounds_reference)
 from repro_torch.fl import (AggregatorConfig, FaultConfig, GuardConfig,
                             SchemeSpec, SimConfig, guarded_aggregate,
-                            make_sparse_runner, run_scheme_matrix,
-                            run_simulation, scheme_aggregate)
+                            make_runner, make_sparse_runner, run_resumable,
+                            run_scheme_matrix, run_simulation,
+                            scheme_aggregate)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
 from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
@@ -374,3 +380,93 @@ def test_two_lane_scheme_matrix_on_the_card_matches_the_cpu(card, path):
     for name in ("energy", "energy_timeline", "acc", "loss"):
         np.testing.assert_allclose(getattr(got, name), getattr(want, name),
                                    rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the stream path, resume and the partitioners on the card
+# ---------------------------------------------------------------------------
+
+STREAM_BASE = dict(rounds=10, local_iters=2, batch_size=4, eval_every=3,
+                   stream_chunk=4)
+
+
+def bits_equal(a, b):
+    for name in ("participation", "eval_rounds", "test_acc", "test_loss",
+                 "energy_per_client", "energy_timeline", "delivered",
+                 "corrupted"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None:
+            assert y is None, name
+            continue
+        np.testing.assert_array_equal(x, y, err_msg=name)
+    for f in ("global_params", "client_params", "anchor_params", "last_tx"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+@pytest.mark.parametrize("faulty", [False, True])
+def test_stream_equals_device_on_the_card(card, faulty):
+    """Chunks of 4 over 10 rounds, copied from pinned memory on a side
+    stream: the device path's bits, faults and guards included."""
+    K = 12
+    clients, test, h, params = small_world(card, K, 10)
+    cfg = SimConfig(**STREAM_BASE)
+    if faulty:
+        cfg = dataclasses.replace(cfg, faults=FAULTS,
+                                  guards=GuardConfig(quarantine=True,
+                                                     clip_norm=10.0))
+    out = {}
+    for path in ("device", "stream"):
+        runner = make_runner(mlp_loss, mlp_accuracy, clients, test,
+                             RandomScheme(0.5, K), CellConfig(num_clients=K),
+                             cfg, data_path=path)
+        out[path] = runner(params, h)
+    assert out["stream"].state.global_params.is_cuda
+    bits_equal(out["stream"], out["device"])
+
+
+def test_kill_and_resume_on_the_card(card, tmp_path):
+    K = 12
+    clients, test, h, params = small_world(card, K, 10)
+    cfg = SimConfig(**STREAM_BASE, checkpoint_every=3,
+                    faults=FAULTS,
+                    guards=GuardConfig(quarantine=True, clip_norm=10.0))
+    policy, cell = RandomScheme(0.5, K), CellConfig(num_clients=K)
+    whole = run_simulation(params, mlp_loss, mlp_accuracy, clients, test,
+                           policy, h, cell, cfg)
+    args = (params, mlp_loss, mlp_accuracy, clients, test, policy, h, cell,
+            cfg, str(tmp_path))
+    assert run_resumable(*args, stop_after_segment=2) is None
+    resumed = run_resumable(*args)
+    assert resumed.state.global_params.is_cuda
+    bits_equal(resumed, whole)
+
+
+def test_stream_sampler_copies_from_pinned_memory(card):
+    """The host blocks are pinned; a chunk lands on the card through a side
+    stream, and what the compute stream reads is the device store's
+    gather, also for chunks asked ahead of use."""
+    K = 8
+    clients, _, _, _ = small_world(card, K, 4)
+    key = data_stream_key(3)
+    sampler = StreamingSampler(clients, key, 2, 4)
+    assert sampler._x.is_pinned() and sampler._y.is_pinned()
+    store = from_client_datasets(clients)
+    rx, ry = stack_rounds_reference(store, key.to(card), 9, 2, 4)
+    chunks = [sampler.chunk(t0, min(t0 + 3, 9)) for t0 in range(0, 9, 3)]
+    for i, (xb, yb) in enumerate(chunks):
+        assert xb.is_cuda and yb.is_cuda
+        assert torch.equal(xb, rx[3 * i:3 * i + 3])
+        assert torch.equal(yb, ry[3 * i:3 * i + 3])
+    assert sampler.copies == 3
+    assert sampler._side is not None and \
+        sampler._side != torch.cuda.current_stream()
+
+
+def test_shard_store_on_the_card_matches_the_cpu(card):
+    train, _ = make_mnist_like(jr.PRNGKey(0), n_train=6000, n_test=10,
+                               device="cpu")
+    got = shard_store(jr.PRNGKey(2, device=card), train, 10, 5)
+    want = shard_store(jr.PRNGKey(2, device="cpu"), train, 10, 5)
+    for a, b in zip(got, want):
+        assert a.is_cuda
+        assert torch.equal(a.cpu(), b)

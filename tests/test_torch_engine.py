@@ -227,12 +227,11 @@ def test_guards_and_aggregator_are_ported(world, field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    # faults are ported (tests/test_torch_faults.py); the metrics case keeps
-    # the id it had beside them
+    # faults are ported (tests/test_torch_faults.py), the data paths,
+    # eval_mode, checkpoint_every and stream_chunk too
+    # (tests/test_torch_datapath.py, tests/test_torch_resume.py); the
+    # metrics case keeps the id it had beside them
     pytest.param("metrics", object(), id="metrics-value1"),
-    ("data_path", "stream"), ("data_path", "prestack"),
-    ("eval_mode", "replay"),
-    ("checkpoint_every", 5), ("stream_chunk", 4),
 ])
 def test_unported_settings_raise(world, field, value):
     cfg = dataclasses.replace(SimConfig(rounds=2), **{field: value})

@@ -372,15 +372,12 @@ def test_sparse_scheme_matrix_refuses_a_model_reading_policy(world):
 
 def test_fl_exports_the_jax_names_of_what_is_ported():
     """``repro_torch.fl`` exports every name of ``repro.fl`` but the scan
-    engine's own pieces (an eager loop has no scan carry or trace) and
-    what is still to port (the stream path, resume: ROADMAP Queue 1 4b)."""
+    engine's own pieces (an eager loop has no whole-run scan program)."""
     import repro.fl as jfl
     import repro_torch.fl as tfl
-    scan_only = {"RoundTrace", "build_scan_sim", "init_carry",
-                 "run_simulation_scan", "run_simulation_legacy",
-                 "stack_round_batches"}
-    not_yet = {"build_chunk_sim", "run_resumable", "segment_bounds",
-               "completed_segments"}
+    scan_only = {"build_scan_sim", "run_simulation_scan",
+                 "run_simulation_legacy"}
+    not_yet = set()
     missing = set(jfl.__all__) - set(tfl.__all__) - scan_only - not_yet
     assert not missing, sorted(missing)
     assert all(hasattr(tfl, name) for name in tfl.__all__)
