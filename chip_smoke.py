@@ -102,9 +102,28 @@ Phases, each reporting on its own lines:
    round at the slice tolerance and after 4 rounds by a relative L2 limit
    between one-ulp nudges and planted faults), and ``shard_store`` (60,000
    examples, K 10, d 5) and ``dirichlet_store`` (K 100, α 0.3), card = CPU
-   bit for bit, each timed; then every (mode, dtype, R, M) that phases 3
-   to 3e gave K1 is held against the plain version (by phase 2's sweep,
-   or checked there and then);
+   bit for bit, each timed;
+3f. observability and the legacy host loop: (a) phase 3's world under
+   phase 3d (a)'s fault cocktail, the guards and the fedasync aggregator
+   with every metrics tap on, on the dense engine, the legacy loop and the
+   sparse engine (participants mode, the per-client stream): tapped =
+   untapped bit for bit on each path, integer taps equal across the paths,
+   card = CPU (masks, deliveries, ``last_tx`` and integer taps bit for
+   bit; floats, float taps and the model within rtol 1e-4, atol 1e-5);
+   (b) tests/golden/harness.py's 15 scheme × path traces, card = CPU under
+   its ``compare_traces`` rule (mask sha256, the eval grid, loss, accuracy
+   and the energy timeline within rtol 1e-4, atol 1e-5), the three paths'
+   masks equal; (c) benchmarks/bench_obs.py's world with the paper's MLP
+   (dense K 128, sparse K 4,096, E 6, T 40, L 2, B 4): warm ms a round
+   untapped and tapped and their ratio beside JAX's CPU bound of 1.10 (a
+   finding, not a gate), and the legacy loop's ms a round beside the
+   dense runner's on the quickstart world; (d) every manifest valid,
+   ``python -m repro_torch.obs.report --validate --summary`` on a
+   ``runs.jsonl`` written under a temporary ``REPRO_OBS_DIR``, one tapped
+   round under ``maybe_profile`` leaving a trace, ``memory_snapshot`` and
+   ``timed_compile`` on the card; then every (mode, dtype, R, M) that
+   phases 3 to 3f gave K1 is held against the plain version (by phase 2's
+   sweep, or checked there and then);
 4. attention kernel — K2 (``flash_attention``) against its plain version on
    the card: the sweeps of tests/test_kernels.py (MHA, GQA 2:1 and 4:1,
    MQA, hd 64 and 128), windows 1 to 128, ``causal=False``, ragged S (1,
@@ -157,7 +176,7 @@ order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(K1, K2 and K3), each with its launches on its main path (phases 3 to 3e
+(K1, K2 and K3), each with its launches on its main path (phases 3 to 3f
 for K1, also counted by mode: plain, subset and weighted, with the
 non-finite rows phase 3d's faulty runs reduced; the generate
 run of phase 5a for K2, that of phase 7a for K3) and its times at the main
@@ -368,7 +387,7 @@ def check_kernel(torch):
 
 
 def check_main_shapes(torch, checked) -> None:
-    """Every ``(mode, dtype, R, M)`` the main path (phases 3 to 3e) gave K1
+    """Every ``(mode, dtype, R, M)`` the main path (phases 3 to 3f) gave K1
     is held against the plain version: the shapes phase 2 did not sweep
     are checked here, at both alignments, on fresh inputs."""
     from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
@@ -2167,6 +2186,466 @@ def data_and_resume(torch, world):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_obs.py's world (bench :67-74 with bench_sparse.py's
+# build_store, test_set and gains), the paper's MLP in place of its DIM-8
+# stand-in: E 6 expected transmitters, T 40, L 2, B 4, 4 examples a client
+OBS_E, OBS_T, OBS_PER, OBS_REPS = 6, 40, 4, 5
+OBS_KD, OBS_KS = 128, 4_096          # its dense and sparse populations
+OBS_BOUND = 1.10                     # bench_obs.py:39, a JAX CPU bound
+# tests/golden/harness.py's world and panel (golden_world, scheme_panel)
+GOLDEN_K, GOLDEN_T, GOLDEN_DIM = 5, 8, 16
+GOLDEN_PATHS = ("dense", "legacy", "sparse")
+
+
+def held_taps(np, got, ref, what) -> float:
+    """Integer taps bit for bit, float taps within the slice tolerance, the
+    same taps present; returns the worst float as a share of its
+    tolerance."""
+    worst = 0.0
+    for name in type(ref)._fields:
+        a, b = getattr(got, name), getattr(ref, name)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{what}: tap {name} on one side only")
+        if a is None:
+            continue
+        if a.dtype != b.dtype:
+            raise AssertionError(f"{what}: tap {name} {a.dtype} {b.dtype}")
+        if a.dtype.kind == "i":
+            np.testing.assert_array_equal(a, b, err_msg=f"{what}: {name}")
+        else:
+            worst = max(worst, held_floats(np, a, b, f"{what}: {name}"))
+    return worst
+
+
+def run_bits(np, torch, got, ref, what):
+    """:func:`same_bits` and, under faults, deliveries, corruptions and
+    ``last_tx``."""
+    same_bits(np, torch, got, ref, what)
+    for name in ("delivered", "corrupted"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(ref, name),
+                                      err_msg=f"{what}: {name}")
+    if not torch.equal(got.state.last_tx, ref.state.last_tx):
+        raise AssertionError(f"{what}: last_tx differs")
+
+
+def sim_path(path, world, cfg, policy, cpu=False):
+    """One quickstart run on ``path``: the dense or sparse engine through
+    ``run_simulation``, or the legacy host loop; on the card or, with
+    ``cpu``, on the host from the same data."""
+    import dataclasses as dc
+
+    from repro_torch.fl import run_simulation, run_simulation_legacy
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+
+    c = "c_" if cpu else ""
+    args = (world[c + "params"], mlp_loss, mlp_accuracy,
+            world[c + "clients"], world[c + "test"], policy,
+            world["h"].cpu() if cpu else world["h"], world["cell"])
+    dev = "cpu" if cpu else None
+    if path == "legacy":
+        return run_simulation_legacy(*args, cfg, device=dev)
+    return run_simulation(*args, dc.replace(cfg, participation=path),
+                          device=dev)
+
+
+def obs_three_paths(torch, world):
+    """(a) the dense engine, the legacy loop and the sparse engine under
+    every tap, phase 3d (a)'s fault cocktail, the guards and the fedasync
+    aggregator; returns K1's launches (all, subset, weighted)."""
+    import numpy as np
+
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.fl import (AggregatorConfig, FaultConfig, GuardConfig,
+                                SimConfig)
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.obs import MetricsSpec, metrics_summary
+
+    tapped = SimConfig(
+        rounds=T, local_iters=5, batch_size=10, eval_every=4,
+        participant_bucket=8, faults=FaultConfig(**FAULT_KW,
+                                                 corrupt_mode="nan"),
+        guards=GuardConfig(**GUARD_KW),
+        aggregator=AggregatorConfig(kind="fedasync", staleness_fn="poly"),
+        metrics=MetricsSpec(), **SPARSE_KW)
+    untapped = dataclasses.replace(tapped, metrics=None)
+    policy = RandomScheme(p_bar=FAULT_P, num_clients=K)
+    card, total = {}, np.zeros(3, int)
+    for path in GOLDEN_PATHS:
+        walls = []
+        for cfg in (tapped, untapped):
+            before = k1_counts(k1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sim_path(path, world, cfg, policy)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            n = np.subtract(k1_counts(k1), before)
+            if tuple(n) != (T, 0, T):
+                raise AssertionError(f"{path}: K1 launches (all, subset, "
+                                     f"weighted) {tuple(n)}, not {(T, 0, T)}")
+            if (out.state.client_params is None) != (path == "sparse"):
+                raise AssertionError(f"{path}: another engine ran")
+            total += n
+            card[path, cfg.metrics is not None] = out
+        on, off = card[path, True], card[path, False]
+        if off.metrics is not None or on.metrics is None:
+            raise AssertionError(f"{path}: the taps' presence is wrong")
+        run_bits(np, torch, on, off, f"{path} tapped vs untapped")
+        s = metrics_summary(on.metrics)
+        if s["tx_total"] != int(on.participation.sum()) or \
+                s["guard_quarantined"] < 1:
+            raise AssertionError(f"{path}: taps disagree with the run: {s}")
+        log(f"[obs] {path:6s} card: tapped = untapped bit for bit (masks, "
+            f"deliveries, energy, acc, loss, model, last_tx); tapped "
+            f"{walls[0]:.2f} s, untapped {walls[1]:.2f} s; K1 launches="
+            f"{T} (weighted {T}) each; taps: tx_total={s['tx_total']} "
+            f"stale_hist={s['stale_hist']} energy voluntary/forced/retry="
+            f"{s['energy_voluntary']:.4f}/{s['energy_forced']:.4f}/"
+            f"{s['energy_retry_overhead']:.4f} J guard quarantined/"
+            f"clipped/capped={s['guard_quarantined']}/{s['guard_clipped']}/"
+            f"{s['guard_stale_capped']} weight entropy mean "
+            f"{s['weight_entropy_mean']:.4f} max {s['weight_max']:.4f}")
+    ref = card["dense", True].metrics
+    for path in GOLDEN_PATHS[1:]:
+        got = card[path, True].metrics
+        for name in ("tx_count", "stale_hist", "guard_events", "rounds",
+                     "agg_rounds"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(ref, name),
+                                          err_msg=f"{path} vs dense: {name}")
+    log("[obs] integer taps equal across the three paths on the card "
+        "(tx_count, stale_hist, guard_events, rounds, agg_rounds)")
+    for path in GOLDEN_PATHS:
+        t0 = time.perf_counter()
+        cpu = sim_path(path, world, tapped, policy, cpu=True)
+        got = card[path, True]
+        worst = max(held_nan(np, got, cpu),
+                    held_taps(np, got.metrics, cpu.metrics, path))
+        log(f"[obs] {path:6s} cpu: masks, deliveries, corruptions, last_tx "
+            f"and integer taps equal; floats, float taps and the model "
+            f"within rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst "
+            f"{worst:.3f}); cpu wall={time.perf_counter() - t0:.2f} s")
+    return total
+
+
+def golden_setup(torch):
+    """tests/golden/harness.py's golden world built by the port on the
+    card (K 5, T 8, 600/200 examples cut to 16 features, a 16-8-10 MLP),
+    its copy on the host, and its five-scheme panel."""
+    from repro_torch import random as jr
+    from repro_torch.core import CellConfig
+    from repro_torch.core.channel import channel_gains, sample_positions
+    from repro_torch.core.selection import (age_aware_policy, csma_policy,
+                                            random_policy)
+    from repro_torch.data import Dataset, make_mnist_like, shard_noniid
+    from repro_torch.fl import AggregatorConfig
+    from repro_torch.models.small import init_mlp
+
+    n = GOLDEN_K
+    tr, te = make_mnist_like(jr.PRNGKey(0), n_train=600, n_test=200)
+    clients = [Dataset(c.x[:, :GOLDEN_DIM], c.y, c.num_classes)
+               for c in shard_noniid(jr.PRNGKey(1), tr, n, d=2)]
+    test = Dataset(te.x[:, :GOLDEN_DIM], te.y, te.num_classes)
+    cell = CellConfig(num_clients=n)
+    h = channel_gains(jr.PRNGKey(3, device="cuda"), sample_positions(
+        jr.PRNGKey(2, device="cuda"), cell), GOLDEN_T).T
+    params = init_mlp(jr.PRNGKey(4), dims=(GOLDEN_DIM, 8, 10))
+
+    def cpu(ds):
+        return Dataset(ds.x.cpu(), ds.y.cpu(), ds.num_classes)
+
+    panel = {
+        "paper": (random_policy(0.4, n), AggregatorConfig(kind="paper")),
+        "fedasync-hinge": (random_policy(0.4, n), AggregatorConfig(
+            kind="fedasync", staleness_fn="hinge")),
+        "fedasync-poly": (random_policy(0.4, n), AggregatorConfig(
+            kind="fedasync", staleness_fn="poly")),
+        "csmaafl": (csma_policy(2, n), AggregatorConfig(kind="csmaafl")),
+        "age-aware": (age_aware_policy(2, n), AggregatorConfig(kind="age")),
+    }
+    return dict(clients=clients, test=test, cell=cell, h=h, params=params,
+                c_clients=[cpu(c) for c in clients], c_test=cpu(test),
+                c_params=[{k: v.cpu() for k, v in layer.items()}
+                          for layer in params]), panel
+
+
+def golden_trace(np, res) -> dict:
+    """tests/golden/harness.py's ``_trace``."""
+    import hashlib
+    mask = np.asarray(res.participation)
+    return {"mask_sha256": hashlib.sha256(
+                mask.astype(np.uint8).tobytes()).hexdigest(),
+            "eval_rounds": np.asarray(res.eval_rounds).astype(int).tolist(),
+            "loss": np.asarray(res.test_loss, np.float64),
+            "acc": np.asarray(res.test_acc, np.float64),
+            "energy_timeline": np.asarray(res.energy_timeline, np.float64)}
+
+
+def golden_traces(torch):
+    """(b) the 15 golden scheme × path traces on the card and on the host
+    CPU, held by tests/golden/harness.py's ``compare_traces`` rule; returns
+    K1's launches."""
+    import numpy as np
+
+    from repro_torch.fl import SimConfig
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+
+    world, panel = golden_setup(torch)
+    total, worst, walls = np.zeros(3, int), 0.0, [0.0, 0.0]
+    for name, (policy, agg) in panel.items():
+        cfg = SimConfig(rounds=GOLDEN_T, local_iters=1, batch_size=4,
+                        eval_every=2, aggregator=agg, **SPARSE_KW)
+        masks = []
+        for path in GOLDEN_PATHS:
+            before = k1_counts(k1)
+            t0 = time.perf_counter()
+            card = sim_path(path, world, cfg, policy)
+            walls[0] += time.perf_counter() - t0
+            n = np.subtract(k1_counts(k1), before)
+            if tuple(n) != (GOLDEN_T, 0, GOLDEN_T):
+                raise AssertionError(f"{name}/{path}: K1 launches {tuple(n)}")
+            total += n
+            t0 = time.perf_counter()
+            cpu = sim_path(path, world, cfg, policy, cpu=True)
+            walls[1] += time.perf_counter() - t0
+            a, b = golden_trace(np, card), golden_trace(np, cpu)
+            if a["mask_sha256"] != b["mask_sha256"] or \
+                    a["eval_rounds"] != b["eval_rounds"]:
+                raise AssertionError(f"{name}/{path}: masks or the eval grid "
+                                     f"differ between the card and the CPU")
+            for field in ("loss", "acc", "energy_timeline"):
+                worst = max(worst, held_floats(np, a[field], b[field],
+                                               f"{name}/{path}: {field}"))
+            masks.append(a["mask_sha256"])
+        if len(set(masks)) != 1:
+            raise AssertionError(f"{name}: the three paths' masks differ")
+    log(f"[golden] 15 scheme x path traces (5 schemes x dense, legacy, "
+        f"sparse): card = CPU under compare_traces' rule (mask sha256 and "
+        f"eval grid equal, loss, acc, energy timeline within rtol "
+        f"{SLICE_RTOL} atol {SLICE_ATOL}, worst {worst:.3f}); the three "
+        f"paths' masks equal for every scheme; K1 launches {int(total[0])} "
+        f"(weighted {int(total[2])}); card {walls[0]:.1f} s, cpu "
+        f"{walls[1]:.1f} s")
+    return total
+
+
+def obs_bench(torch, world):
+    """(c) bench_obs.py's overhead pairs on the card, and bench_engine.py's
+    legacy-loop baseline on the quickstart world; returns K1's launches."""
+    import numpy as np
+
+    from repro_torch import random as jr
+    from repro_torch.core import CellConfig
+    from repro_torch.core.selection import RandomScheme, participant_bucket
+    from repro_torch.data import Dataset, DeviceDataStore
+    from repro_torch.fl import SimConfig, make_runner, make_sparse_runner
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
+    from repro_torch.obs import MetricsSpec
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    test = Dataset(torch.randn(64, 784, generator=gen, device="cuda"),
+                   torch.arange(64, dtype=torch.int32, device="cuda") % 10,
+                   10)
+    params = init_mlp(jr.PRNGKey(4))
+    base = SimConfig(rounds=OBS_T, local_iters=2, batch_size=4,
+                     eval_every=OBS_T, eval_batch=64, **SPARSE_KW)
+    total = np.zeros(3, int)
+
+    def world_of(n):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        store = DeviceDataStore(
+            torch.randn(n, OBS_PER, 784, generator=g, device="cuda"),
+            (torch.arange(OBS_PER, dtype=torch.int32, device="cuda")
+             % 10).repeat(n, 1),
+            torch.full((n,), OBS_PER, dtype=torch.int32, device="cuda"))
+        h = torch.rand(n, OBS_T, generator=g, device="cuda") \
+            * (1e-12 - 1e-14) + 1e-14
+        return store, h
+
+    def timed(runner, h, expect):
+        nonlocal total
+        warm, out = [], None
+        for rep in range(1 + OBS_REPS):          # a cold call, then warm
+            before = k1_counts(k1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = runner(params, h)
+            torch.cuda.synchronize()
+            if rep:
+                warm.append(time.perf_counter() - t0)
+            n = np.subtract(k1_counts(k1), before)
+            if tuple(n) != expect:
+                raise AssertionError(f"K1 launches {tuple(n)}, not {expect}")
+            total += n
+        return min(warm) / OBS_T * 1e3, out
+
+    for label, n in (("dense", OBS_KD), ("sparse", OBS_KS)):
+        store, h = world_of(n)
+        policy, cell = RandomScheme(OBS_E / n, n), CellConfig(num_clients=n)
+        ms, outs = {}, {}
+        for spec in (None, MetricsSpec()):
+            if label == "dense":
+                cfg = dataclasses.replace(base, participation="dense",
+                                          metrics=spec)
+                runner = make_runner(mlp_loss, mlp_accuracy, store, test,
+                                     policy, cell, cfg)
+                expect = (OBS_T, 0, 0)
+            else:
+                cfg = dataclasses.replace(
+                    base, participation="sparse", metrics=spec,
+                    participant_bucket=participant_bucket(OBS_E, cap=n))
+                runner = make_sparse_runner(mlp_loss, mlp_accuracy, store,
+                                            test, policy, cell, cfg)
+                expect = (OBS_T, OBS_T, 0)
+            ms[spec is not None], outs[spec is not None] = timed(
+                runner, h, expect)
+        np.testing.assert_array_equal(outs[True].participation,
+                                      outs[False].participation)
+        if not torch.equal(outs[True].state.global_params,
+                           outs[False].state.global_params):
+            raise AssertionError(f"{label}: the taps moved the model")
+        R = n if label == "dense" else cfg.participant_bucket
+        log(f"[obs-bench] {label} K={n}: warm {ms[False]:.3f} ms a round "
+            f"untapped, {ms[True]:.3f} tapped, ratio "
+            f"{ms[True] / ms[False]:.3f} (JAX's CPU bound {OBS_BOUND}: a "
+            f"finding, not a gate); tapped = untapped bit for bit; K1 at R "
+            f"{R} ({'plain' if label == 'dense' else 'subset'}), "
+            f"{OBS_T} launches a run; best of {OBS_REPS} warm")
+        del store
+
+    # bench_engine.py's baseline: the legacy host loop against the dense
+    # runner, on the quickstart world (random p̄ = 0.1, T 12 × 5 × 10)
+    cfg = SimConfig(rounds=T, local_iters=5, batch_size=10, eval_every=4)
+    policy = RandomScheme(p_bar=0.1, num_clients=K)
+    ms, outs = {}, {}
+    for path in ("dense", "legacy"):
+        walls = []
+        for _ in range(3):                      # a cold call, then warm
+            before = k1_counts(k1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[path] = sim_path(path, world, cfg, policy)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            n = np.subtract(k1_counts(k1), before)
+            if tuple(n) != (T, 0, 0):
+                raise AssertionError(f"{path}: K1 launches {tuple(n)}")
+            total += n
+        ms[path] = min(walls[1:]) / T * 1e3
+    worst = held_to(np, outs["legacy"], outs["dense"])
+    log(f"[obs-bench] quickstart random(0.1): legacy loop {ms['legacy']:.3f} "
+        f"ms a round warm, dense runner {ms['dense']:.3f} (legacy/dense "
+        f"{ms['legacy'] / ms['dense']:.3f}); masks, last_tx equal, floats "
+        f"within rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst {worst:.3f}); "
+        f"best of 2 warm")
+    return total
+
+
+def obs_telemetry(torch, world):
+    """(d) manifests through ``runs.jsonl`` and ``repro_torch.obs.report``,
+    a profiled tapped round, ``memory_snapshot`` and ``timed_compile`` on
+    the card; returns K1's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.selection import RandomScheme
+    from repro_torch.fl import SimConfig, make_runner, run_resumable
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import mlp_accuracy, mlp_loss
+    from repro_torch.obs import (MetricsSpec, maybe_profile, timed_compile,
+                                 validate_manifest)
+    from repro_torch.obs.telemetry import get_telemetry
+
+    tel = get_telemetry()
+    bad = [p for m in tel.manifests for p in validate_manifest(m)]
+    kinds = sorted({m["kind"] for m in tel.manifests})
+    if bad or not {"make_runner", "make_sparse_runner"} <= set(kinds):
+        raise AssertionError(f"manifests: {bad}, kinds {kinds}")
+    log(f"[obs-tel] the last {len(tel.manifests)} manifests of this run "
+        f"valid ({', '.join(kinds)})")
+    before = k1_counts(k1)
+    policy = RandomScheme(p_bar=0.5, num_clients=K)
+    cfg = SimConfig(rounds=2, local_iters=5, batch_size=10, eval_every=1,
+                    metrics=MetricsSpec(), data_path="device")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_OBS_DIR"] = tmp
+        try:
+            args = (mlp_loss, mlp_accuracy, world["clients"], world["test"],
+                    policy, world["cell"])
+            runner = make_runner(*args, cfg)
+            runner = timed_compile(runner, world["params"],
+                                   world["h"][:, :2], label="obs.runner")
+            with tel.span("obs.runner.execute"):
+                runner(world["params"], world["h"][:, :2])
+            make_runner(*args, dataclasses.replace(
+                cfg, participation="sparse", **SPARSE_KW))(
+                world["params"], world["h"][:, :2])
+            run_resumable(world["params"], mlp_loss, mlp_accuracy,
+                          world["clients"], world["test"], policy,
+                          world["h"][:, :2], world["cell"], cfg,
+                          os.path.join(tmp, "ckpt"))
+        finally:
+            del os.environ["REPRO_OBS_DIR"]
+        runs = os.path.join(tmp, "runs.jsonl")
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", "--validate",
+             runs, "--summary", runs], capture_output=True, text=True,
+            timeout=120, env={**os.environ, "PYTHONPATH": str(SRC)})
+        if proc.returncode != 0 or "3/3 manifests valid" not in proc.stdout:
+            raise AssertionError(f"report: rc {proc.returncode}\n"
+                                 f"{proc.stdout}\n{proc.stderr}")
+        lines = proc.stdout.strip().splitlines()
+        log(f"[obs-tel] python -m repro_torch.obs.report --validate "
+            f"--summary on runs.jsonl: {lines[0]}; {lines[1]}; "
+            + "; ".join(" ".join(ln.split()) for ln in lines
+                        if "backend=" in ln))
+        one = dataclasses.replace(cfg, rounds=1)
+        runner = make_runner(*args, one)
+        with maybe_profile(os.path.join(tmp, "profile")) as d:
+            runner(world["params"], world["h"][:, :1])
+        files = os.listdir(d)
+        if len(files) != 1:
+            raise AssertionError(f"maybe_profile left {files}")
+        size = os.path.getsize(os.path.join(d, files[0]))
+        log(f"[obs-tel] one tapped round under maybe_profile: "
+            f"{files[0]} ({size} bytes)")
+    snap = tel.memory_snapshot()
+    if not snap[0]["bytes_in_use"] or \
+            snap[0]["peak_bytes_in_use"] < snap[0]["bytes_in_use"]:
+        raise AssertionError(f"memory_snapshot: {snap}")
+    compile_s = tel.span_stats("obs.runner.compile")["total_s"]
+    exec_s = tel.span_stats("obs.runner.execute")["total_s"]
+    log(f"[obs-tel] memory_snapshot: {snap[0]['device']} "
+        f"{snap[0]['bytes_in_use']} bytes in use, peak "
+        f"{snap[0]['peak_bytes_in_use']}; timed_compile: obs.runner.compile "
+        f"{compile_s:.3f} s (first call), obs.runner.execute {exec_s:.3f} s")
+    return np.subtract(k1_counts(k1), before)
+
+
+def observability(torch, world):
+    """Phase 3f: (a)-(d); returns K1's launches (all, subset, weighted)."""
+    steps, total = [], None
+    for name, fn, args in (("(a)", obs_three_paths, (torch, world)),
+                           ("(b)", golden_traces, (torch,)),
+                           ("(c)", obs_bench, (torch, world)),
+                           ("(d)", obs_telemetry, (torch, world))):
+        t0 = time.perf_counter()
+        n = fn(*args)
+        total = n if total is None else total + n
+        steps.append(f"{name} {time.perf_counter() - t0:.1f}")
+    log(f"[obs] phase 3f's steps in s: {', '.join(steps)}; K1 launches "
+        f"{int(total[0])} (subset {int(total[1])}, weighted "
+        f"{int(total[2])})")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -3010,8 +3489,11 @@ def main() -> int:
     t0 = time.perf_counter()
     data = data_and_resume(torch, world)
     log(f"[data] phase 3e in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    obs = observability(torch, world)
+    log(f"[obs] phase 3f in {time.perf_counter() - t0:.1f} s")
     check_main_shapes(torch, checked)
-    sparse = sparse + faulty + data
+    sparse = sparse + faulty + data + obs
     k1_modes = {"plain": launches + panel - panel_weighted
                 + int(sparse[0] - sparse[1] - sparse[2]),
                 "subset": int(sparse[1]),

@@ -1,11 +1,12 @@
 """FL runtime: the eager simulation engine on the device, prestack and
 stream data paths, resumable checkpointed runs, the participant-centric
-sparse engine, the fault processes, the aggregators (eq. 3, guarded,
-participant-subset and scheme-weighted) and the seed, scenario, fault and
-scheme matrices."""
+sparse engine, the legacy host round loop, the fault processes, the
+aggregators (eq. 3, guarded, participant-subset and scheme-weighted) and
+the seed, scenario, fault and scheme matrices, each with the metrics taps
+of :mod:`repro_torch.obs.taps`."""
 from . import sparse
 from .engine import (MatrixResult, RoundTrace, SimConfig, SimResult,
-                     apply_round_decision, build_chunk_sim, check_ported,
+                     apply_round_decision, build_chunk_sim, check_modes,
                      grant_forced_bandwidth, init_carry, make_local_train,
                      make_runner, resolve_data_path, run_scenario_matrix,
                      run_seed_matrix, stack_round_batches)
@@ -17,7 +18,7 @@ from .resume import (completed_segments, read_segment_manifest,
                      run_resumable, segment_bounds)
 from .schemes import (SchemeMatrixResult, SchemeSpec, default_scheme_panel,
                       run_scheme_matrix, stack_stores)
-from .simulator import run_simulation
+from .simulator import make_round_fn, run_simulation, run_simulation_legacy
 from .sparse import (ParticipationTrace, build_participation_program,
                      build_sparse_train_program, make_sparse_runner,
                      resolve_participation, train_trace_count)
@@ -29,9 +30,10 @@ from .state import (AggParams, AggregatorConfig, FLState, ParamLayout,
                     staleness_scale, subset_aggregate, update_norms,
                     weighted_aggregate)
 
-__all__ = ["SimConfig", "SimResult", "apply_round_decision", "check_ported",
+__all__ = ["SimConfig", "SimResult", "apply_round_decision", "check_modes",
            "grant_forced_bandwidth", "make_local_train", "make_runner",
-           "run_simulation", "resolve_data_path", "FLState", "ParamLayout",
+           "run_simulation", "run_simulation_legacy", "make_round_fn",
+           "resolve_data_path", "FLState", "ParamLayout",
            "run_seed_matrix", "run_scenario_matrix", "MatrixResult",
            "RoundTrace", "build_chunk_sim", "init_carry",
            "stack_round_batches",

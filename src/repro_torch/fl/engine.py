@@ -43,9 +43,15 @@ changes no bit.
   the staleness ledger and the broadcast; :func:`~repro_torch.fl.faults.
   corrupt_deltas` poisons the flagged rows before aggregation.  The
   participation masks are the clean run's.
+* **metrics taps** — with ``cfg.metrics`` enabling any tap
+  (:mod:`repro_torch.obs.taps`), the :class:`~repro_torch.obs.taps.
+  MetricsState` rides last in the carry and each round updates it from the
+  decision, the decision energy before the fault pipeline, the delivered
+  set, the staleness ledger before the broadcast, the corrupted deltas and
+  the aggregation weights; ``SimResult.metrics`` holds it as numpy arrays.
+  Taps only read: a tapped run is the untapped run bit for bit.
 
-Every ``SimConfig`` setting is ported but ``metrics``, which raises
-``NotImplementedError`` naming the field.  ``participation`` ``"sparse"``
+Every ``SimConfig`` setting is ported.  ``participation`` ``"sparse"``
 (and ``"auto"`` where its preconditions hold) dispatches to
 :mod:`repro_torch.fl.sparse` as JAX's ``make_runner`` does.
 
@@ -73,6 +79,8 @@ from ..data.device import (DeviceDataStore, StreamingSampler,
                            sample_round_client_stream)
 from ..data.pipeline import BatchIterator, client_batches
 from ..data.synthetic import Dataset
+from ..obs.taps import (init_metrics, metrics_active, metrics_numpy,
+                        metrics_round_update, stack_metrics)
 from ..obs.telemetry import emit_run_manifest, get_telemetry
 from ..optim import Optimizer, sgd
 from .faults import apply_faults, corrupt_deltas, init_fault_state
@@ -107,23 +115,12 @@ class SimConfig:
     eval_mode: str = "inscan"
     checkpoint_every: int | None = None
     overflow: str = "spill"
-    metrics: Any = None
+    metrics: Any = None       # a repro_torch.obs.taps.MetricsSpec
 
 
-#: settings ported only in part: field -> the values this port runs
-_PORTED = {
-    "metrics": (None,),
-}
-
-
-def check_ported(cfg: SimConfig) -> None:
-    """Raise ``NotImplementedError`` naming any setting not ported yet."""
-    for field, ok in _PORTED.items():
-        value = getattr(cfg, field)
-        if not any(value is v or value == v for v in ok):
-            raise NotImplementedError(
-                f"SimConfig.{field}={value!r} is not ported to repro_torch "
-                f"yet (ported: {', '.join(map(repr, ok))})")
+def check_modes(cfg: SimConfig) -> None:
+    """Raise ``ValueError`` on an unknown ``local_mode`` or ``eval_mode``
+    before anything is built."""
     if cfg.local_mode not in ("continuous", "participants"):
         raise ValueError(f"unknown local_mode {cfg.local_mode!r} "
                          "(expected continuous|participants)")
@@ -180,6 +177,9 @@ class SimResult(NamedTuple):
     # the server, and those of them that were corrupted; None on clean runs
     delivered: np.ndarray | None = None
     corrupted: np.ndarray | None = None
+    # with cfg.metrics enabling taps, a repro_torch.obs.taps.MetricsState of
+    # numpy arrays (feed metrics_summary); None otherwise
+    metrics: Any = None
 
 
 class RoundTrace(NamedTuple):
@@ -308,13 +308,18 @@ def stack_round_batches(client_data: Sequence[Dataset], cfg: SimConfig,
 
 def init_carry(params, num_clients: int, cfg: SimConfig, device=None):
     """The round transition's carry: ``(FLState, energy [K])``, plus the
-    per-client :class:`~repro_torch.fl.faults.FaultState` with faults on;
-    on ``device`` (``None`` means the card)."""
+    per-client :class:`~repro_torch.fl.faults.FaultState` with faults on,
+    plus the :class:`~repro_torch.obs.taps.MetricsState`, last, when
+    ``cfg.metrics`` enables a tap; on ``device`` (``None`` means the
+    card)."""
     device = resolve_device(device)
     carry = (init_fl_state(params, num_clients, device=device),
              torch.zeros(num_clients, dtype=torch.float32, device=device))
     if cfg.faults is not None:
         carry = carry + (init_fault_state(num_clients, device),)
+    ms = init_metrics(cfg.metrics, num_clients, cfg.guards, device=device)
+    if ms is not None:
+        carry = carry + (ms,)
     return carry
 
 
@@ -323,22 +328,25 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
                      num_clients: int, policy_fn):
     """The round transition every execution mode shares: protocol Steps
     1-5, the fault pipeline, the energy ledger, the aggregators and the
-    strided eval.  ``round_step(carry, t, h_t, xb, yb, pw, base_key,
-    test_x, test_y, fp, ap) -> (carry, (mask, e_round, acc, loss, did_eval,
-    delivered, corrupt))`` for the absolute round ``t``; ``pw`` is the
-    hoisted ``(probs, w)`` of the round, or ``None`` to ask the policy."""
+    strided eval and the metrics taps.  ``round_step(carry, t, h_t, xb, yb,
+    pw, base_key, test_x, test_y, fp, ap) -> (carry, (mask, e_round, acc,
+    loss, did_eval, delivered, corrupt))`` for the absolute round ``t``;
+    ``pw`` is the hoisted ``(probs, w)`` of the round, or ``None`` to ask
+    the policy."""
     K = num_clients
     faults = cfg.faults
     guards = cfg.guards if cfg.guards is not None and cfg.guards.active \
         else None
-    check_ported(cfg)
+    tapped = metrics_active(cfg.metrics, guards)
+    check_modes(cfg)
 
     def round_step(carry, t, h_t, xb, yb, pw, base_key, test_x, test_y,
                    fp=None, ap=None):
         state, energy = carry[0], carry[1]
         probs, w = pw if pw is not None else policy_fn(t, h_t, state)
-        mask, _, w, e_round = apply_round_decision(
+        mask, forced, w, e_round = apply_round_decision(
             probs, w, t, h_t, state, base_key, cfg, cell, K)
+        e_base = e_round    # the decision energy, before the fault pipeline
         delivered, corrupt = mask, None
         if faults is not None:   # what lands, on the salted streams
             out, fstate = apply_faults(t, base_key, mask, e_round, carry[2],
@@ -357,7 +365,7 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
         deltas = pseudo_gradients(state)
         if faults is not None:
             deltas = corrupt_deltas(deltas, corrupt, fp, faults)
-        if ap is not None or guards is not None:
+        if ap is not None or guards is not None or tapped:
             staleness = state.round - state.last_tx
         if ap is not None:   # probs: nominal, before the aging boost
             new_global = scheme_aggregate(
@@ -369,6 +377,12 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
         else:
             new_global = masked_aggregate(state.global_params, deltas,
                                           delivered, K)
+        if tapped:
+            mstate = metrics_round_update(
+                carry[-1], cfg.metrics, mask=mask, forced=forced,
+                e_base=e_base, e_round=e_round, staleness=staleness,
+                delivered=delivered, deltas=deltas, probs=probs,
+                num_clients=K, guards=guards, agg_params=ap)
         state = broadcast_to_participants(state, new_global, delivered)
         did = cfg.eval_mode == "inscan" and (t % cfg.eval_every == 0
                                              or t == cfg.rounds - 1)
@@ -377,7 +391,8 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
             g = layout.unflatten(state.global_params)
             acc = acc_fn(g, test_x, test_y).to(torch.float32)
             loss = loss_fn(g, test_x, test_y).to(torch.float32)
-        carry = (state, energy) + ((fstate,) if faults is not None else ())
+        carry = (state, energy) + ((fstate,) if faults is not None else ()) \
+            + ((mstate,) if tapped else ())
         return carry, (mask, e_round, acc, loss, did, delivered, corrupt)
 
     return round_step
@@ -485,6 +500,7 @@ def _to_result(carry, trace: RoundTrace, cfg: SimConfig) -> SimResult:
     idx = np.where(trace.did_eval)[0]
     e_round = trace.e_round.cpu().numpy()
     faulty = cfg.faults is not None
+    tapped = metrics_active(cfg.metrics, cfg.guards)
     return SimResult(
         test_acc=trace.acc.cpu().numpy()[idx],
         test_loss=trace.loss.cpu().numpy()[idx],
@@ -496,7 +512,8 @@ def _to_result(carry, trace: RoundTrace, cfg: SimConfig) -> SimResult:
         delivered=(trace.delivered.to(torch.float32).cpu().numpy()
                    if faulty else None),
         corrupted=(trace.corrupt.to(torch.float32).cpu().numpy()
-                   if faulty else None))
+                   if faulty else None),
+        metrics=metrics_numpy(carry[-1]) if tapped else None)
 
 
 def make_runner(loss_fn: Callable, acc_fn: Callable,
@@ -516,7 +533,9 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
     ``cfg.participation`` resolves to ``"sparse"``
     (:func:`repro_torch.fl.sparse.resolve_participation`) the runner is
     :func:`repro_torch.fl.sparse.make_sparse_runner`'s; on the stream path
-    it is the stream runner; else the dense engine's.
+    it is the stream runner; else the dense engine's.  The dense and
+    stream runners emit the ``"make_runner"`` manifest, the sparse one
+    ``"make_sparse_runner"``.
     """
     from .sparse import make_sparse_runner, resolve_participation
 
@@ -529,6 +548,8 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
         # the default optimizer's (kind, lr)
         return make_sparse_runner(loss_fn, acc_fn, client_data, test_ds,
                                   policy_fn, cell, cfg, opt, device=device)
+    emit_run_manifest("make_runner", cfg,
+                      extra={"path": path, "num_clients": K})
     if path == "stream":
         return _make_stream_runner(loss_fn, acc_fn, _shards(client_data,
                                                             path),
@@ -595,7 +616,7 @@ def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
     (``data_path="device"``) or the prestack batches (``"prestack"``, built
     here once).  The two keywords replace ``cfg.faults.params()`` and
     ``cfg.aggregator.params()`` for one run: what the matrix sweeps
-    sweep."""
+    sweep.  Each run is an ``engine.execute`` span, through the readback."""
     policy_fn = as_policy_fn(policy)
     resolve_data_path(client_data, cfg, data_path)
     device = resolve_device(device)
@@ -612,22 +633,25 @@ def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
         data_key = data_stream_key(cfg.seed, device=device)
     test_x, test_y = _test_slice(test_ds, cfg, device)
     T = cfg.rounds
+    tel = get_telemetry()
 
     @torch.no_grad()
     def run(params, h_all, seed: int | None = None, fault_params=None,
             agg_params=None) -> tuple[SimResult, np.ndarray]:
         key = jr.PRNGKey(cfg.seed if seed is None else seed, device=device)
         h_rounds = _gains(h_all, device)
-        pw = hoisted_policy(policy_fn, h_rounds)
-        carry = init_carry(params, K, cfg, device)
-        if data_path == "prestack":
-            carry, tr = chunk(carry, range(T), h_rounds, xb_all, yb_all, pw,
-                              key, test_x, test_y, fault_params, agg_params)
-        else:
-            carry, tr = chunk(carry, range(T), h_rounds, pw, store,
-                              data_key, key, test_x, test_y, fault_params,
-                              agg_params)
-        return _to_result(carry, tr, cfg), tr.e_round.cpu().numpy()
+        with tel.span("engine.execute"):
+            pw = hoisted_policy(policy_fn, h_rounds)
+            carry = init_carry(params, K, cfg, device)
+            if data_path == "prestack":
+                carry, tr = chunk(carry, range(T), h_rounds, xb_all, yb_all,
+                                  pw, key, test_x, test_y, fault_params,
+                                  agg_params)
+            else:
+                carry, tr = chunk(carry, range(T), h_rounds, pw, store,
+                                  data_key, key, test_x, test_y,
+                                  fault_params, agg_params)
+            return _to_result(carry, tr, cfg), tr.e_round.cpu().numpy()
 
     def runner(params, h_all, seed: int | None = None, fault_params=None,
                agg_params=None) -> SimResult:
@@ -700,7 +724,9 @@ class MatrixResult(NamedTuple):
     energy: np.ndarray         # [..., K] cumulative per-client Joules
     e_round: np.ndarray        # [..., T, K]
     participation: np.ndarray  # [..., T, K]
-    metrics: Any = None        # the metrics taps are not ported: None
+    # each lane's MetricsState, stacked on the lane axes, when cfg.metrics
+    # enables taps; None otherwise
+    metrics: Any = None
 
 
 def _matrix_result(lanes: list, shape: tuple) -> MatrixResult:
@@ -716,7 +742,8 @@ def _matrix_result(lanes: list, shape: tuple) -> MatrixResult:
         eval_rounds=lanes[0][0].eval_rounds,
         energy=stack([r.energy_per_client for r, _ in lanes]),
         e_round=stack([e for _, e in lanes]),
-        participation=stack([r.participation for r, _ in lanes]))
+        participation=stack([r.participation for r, _ in lanes]),
+        metrics=stack_metrics([r.metrics for r, _ in lanes], shape))
 
 
 def _lanes_check(h_stack, seeds, cfg: SimConfig) -> torch.Tensor:
@@ -773,7 +800,7 @@ def run_scenario_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
     ``online_policy(spec, rho=rhos[r])`` (ρ as a float32 tensor, as JAX
     traces it) on ``h_stack[s]`` with participation seed ``seeds[s]``;
     leading axes ``[R, S]``.  Sweep K by calling once per client count."""
-    check_ported(cfg)
+    check_modes(cfg)
     device = resolve_device(device)
     h = _lanes_check(h_stack, seeds, cfg)
     data, path = matrix_data(client_data, cfg, device)

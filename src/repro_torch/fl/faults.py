@@ -361,7 +361,9 @@ class FaultMatrixResult(NamedTuple):
     energy: dict                 # {...: [R, K]} cumulative Joules
     delivered: dict              # {...: [R, T, K]} realized deliveries
     finite_final: dict           # {...: [R] bool} final model all finite
-    metrics: Any = None          # the metrics taps are not ported: None
+    # {...: MetricsState with [R]-leading fields} when cfg.metrics enables
+    # taps; None otherwise
+    metrics: Any = None
 
 
 def run_fault_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
@@ -379,6 +381,7 @@ def run_fault_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
     ``h_all``.  ``finite_final`` reads the model's own parameters, not the
     flat row's pad columns.
     """
+    from ..obs.taps import stack_metrics
     from ..obs.telemetry import emit_run_manifest, get_telemetry
     from .engine import _dense_runner, matrix_data, solve_once
 
@@ -397,6 +400,7 @@ def run_fault_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
     emit_run_manifest("run_fault_matrix", cfg,
                       extra={"rates": len(fps), "num_clients": K})
     out_acc, out_loss, out_energy, out_del, out_fin = {}, {}, {}, {}, {}
+    out_ms: dict = {}
     eval_rounds = None
     for name, guards in (("unguarded", None), ("guarded", guard)):
         runner = _dense_runner(
@@ -411,10 +415,14 @@ def run_fault_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
         out_loss[name] = np.stack([r.test_loss for r in lanes])
         out_energy[name] = np.stack([r.energy_per_client for r in lanes])
         out_del[name] = np.stack([r.delivered for r in lanes])
+        ms = stack_metrics([r.metrics for r in lanes], (len(lanes),))
+        if ms is not None:
+            out_ms[name] = ms
         out_fin[name] = np.asarray([all(
             bool(torch.isfinite(p).all())
             for layer in r.state.layout.unflatten(r.state.global_params)
             for p in layer.values()) for r in lanes])
     return FaultMatrixResult(rates=rates_arr, acc=out_acc, loss=out_loss,
                              eval_rounds=eval_rounds, energy=out_energy,
-                             delivered=out_del, finite_final=out_fin)
+                             delivered=out_del, finite_final=out_fin,
+                             metrics=out_ms or None)

@@ -36,9 +36,10 @@ from ..core.selection import (age_aware_policy, as_policy_fn, csma_policy,
                               online_policy, participant_bucket,
                               policy_ledger_ok, random_policy)
 from ..data.device import DeviceDataStore
+from ..obs.taps import stack_metrics
 from ..obs.telemetry import emit_run_manifest, get_telemetry
 from ..optim import Optimizer, sgd
-from .engine import _as_store, _dense_runner, check_ported, solve_once
+from .engine import _as_store, _dense_runner, check_modes, solve_once
 from .sparse import build_sparse_train_program, make_sparse_runner
 from .state import AggregatorConfig
 
@@ -99,7 +100,9 @@ class SchemeMatrixResult(NamedTuple):
     energy: np.ndarray             # [V, L, S, K] cumulative Joules
     energy_timeline: np.ndarray    # [V, L, S, T] cumulative total Joules
     participation: np.ndarray      # [V, L, S, T, K]
-    metrics: Any = None            # the metrics taps are not ported: None
+    # each lane's MetricsState, stacked on [V, L, S], when cfg.metrics
+    # enables taps; None otherwise
+    metrics: Any = None
 
 
 def stack_stores(stores: Sequence[DeviceDataStore]) -> DeviceDataStore:
@@ -184,7 +187,7 @@ def run_scheme_matrix(init_params, loss_fn: Callable, acc_fn: Callable,
     # every lane takes the scheme path; its AggParams pick the weights
     run_cfg = dataclasses.replace(cfg, rounds=T,
                                   aggregator=schemes[0].aggregator)
-    check_ported(run_cfg)
+    check_modes(run_cfg)
     severity = _severity_stores(stores, device)
     V = len(severity)
     if severity[0].num_clients != K:
@@ -242,4 +245,5 @@ def run_scheme_matrix(init_params, loss_fn: Callable, acc_fn: Callable,
         loss=stack("test_loss"), eval_rounds=lanes[0].eval_rounds,
         energy=stack("energy_per_client"),
         energy_timeline=stack("energy_timeline"),
-        participation=stack("participation"))
+        participation=stack("participation"),
+        metrics=stack_metrics([r.metrics for r in lanes], (V, L, S)))

@@ -40,9 +40,12 @@ was delivered and corrupted, and the ``last_tx`` and anchor ledgers advance
 on delivered uploads only.  Phase B corrupts the flagged rows of its bucket
 and aggregates over the delivered ones.
 
-Not ported yet: the metrics taps (``cfg.metrics``), which raise
-``NotImplementedError`` as on the dense engine, so the tap lanes
-``forced_p`` / ``base_p`` stay ``None``.
+With ``cfg.metrics`` enabling taps the accumulation is split, as in JAX:
+phase A emits two more participant lanes (``forced_p``, ``base_p``) and
+:func:`_reduce_ledger_taps` reduces the ledger taps from the ``[T, P]``
+trace after the round loop; phase B accumulates the train taps over its
+bucket; :func:`~repro_torch.obs.taps.merge_metrics` joins them.  Integer
+taps equal the dense engine's.
 """
 from __future__ import annotations
 
@@ -60,10 +63,13 @@ from ..core.selection import (as_policy_fn, participant_bucket,
 from ..data.device import (DeviceDataStore, data_stream_key,
                            from_client_datasets, gather_participant_rounds)
 from ..data.synthetic import Dataset
-from ..obs.telemetry import get_telemetry
+from ..obs.taps import (MetricsState, energy_by_cause, init_metrics,
+                        merge_metrics, metrics_active, metrics_numpy,
+                        staleness_histogram, update_train_taps)
+from ..obs.telemetry import emit_run_manifest, get_telemetry
 from ..optim import Optimizer, sgd
 from .engine import (SimResult, _as_store, apply_round_decision,
-                     check_ported, make_local_train)
+                     check_modes, make_local_train)
 from .faults import apply_faults, corrupt_deltas, init_fault_state
 from .state import (FLState, ParamLayout, guarded_subset_aggregate,
                     scheme_subset_aggregate, subset_aggregate)
@@ -118,18 +124,20 @@ class ParticipationTrace(NamedTuple):
     stale: torch.Tensor        # [P] int32 staleness Δτ at transmission
     prob: torch.Tensor         # [P] f32 nominal policy prob (pre aging boost)
     n_tx: torch.Tensor         # int32 realized transmitters (overflow check)
-    # metrics-tap lanes: None until the taps are ported
-    forced_p: Any = None
-    base_p: Any = None
+    # metrics-tap lanes, only when cfg.metrics enables ledger taps
+    forced_p: Any = None       # [P] bool: a Δ_k-forced transmission
+    base_p: Any = None         # [P] f32 decision energy, before the faults
 
 
 def _compact(mask, e_round, probs, t, last_tx, anchor_slot, bucket: int,
-             delivered=None, corrupt=None) -> ParticipationTrace:
+             delivered=None, corrupt=None, taps: bool = False, forced=None,
+             e_base=None) -> ParticipationTrace:
     """One round's (``[K]`` rows, ``t`` an int) or every round's (``[T, K]``
     rows, ``t`` ``[T, 1]``) participant lanes over the decision ``mask``;
     ``last_tx`` and ``anchor_slot`` are the ledgers before the round,
     ``delivered`` and ``corrupt`` the fault outcomes (``None``: every
-    upload lands clean)."""
+    upload lands clean).  ``taps`` adds the tap lanes from ``forced`` and
+    ``e_base`` (``None``: nothing forced, the energy paid)."""
     idx, valid, n_tx = participants_from_mask(mask, bucket)
     kc = torch.clamp(idx.long(), 0, mask.shape[-1] - 1)
 
@@ -139,17 +147,53 @@ def _compact(mask, e_round, probs, t, last_tx, anchor_slot, bucket: int,
     del_p = valid if delivered is None else lane(delivered > 0, False)
     cor_p = (torch.zeros_like(valid) if corrupt is None
              else lane(corrupt, False))
-    return ParticipationTrace(
-        idx, valid, lane(anchor_slot, 0), lane(e_round, 0.0), del_p, cor_p,
+    e_p = lane(e_round, 0.0)
+    tr = ParticipationTrace(
+        idx, valid, lane(anchor_slot, 0), e_p, del_p, cor_p,
         torch.where(valid, t - last_tx.gather(-1, kc), 0),
         lane(probs.to(torch.float32), 0.0), n_tx)
+    if taps:
+        tr = tr._replace(
+            forced_p=(torch.zeros_like(valid) if forced is None
+                      else lane(forced, False)),
+            base_p=e_p if e_base is None else lane(e_base, 0.0))
+    return tr
+
+
+def _reduce_ledger_taps(tr: ParticipationTrace, spec, num_clients: int,
+                        rounds: int) -> MetricsState:
+    """The ledger taps of a whole run from phase A's ``[T, P]`` lanes, in
+    one pass after the round loop.  The pad sentinel ``K`` of ``part_idx``
+    lands in a spare slot ``K`` that is sliced off (JAX's ``mode="drop"``
+    scatter); padded lanes are neither valid nor delivered and carry no
+    energy.  Integer taps equal the dense engine's per-round accumulation
+    (the lanes are exactly the mask's fires); the energy sums in another
+    order."""
+    dev = tr.valid.device
+    tx = stale = ec = None
+    if spec.participation:
+        tx = torch.zeros(num_clients + 1, dtype=torch.int32, device=dev)
+        tx = tx.scatter_add(0, tr.part_idx.reshape(-1).long(),
+                            tr.valid.reshape(-1).to(torch.int32))
+        tx = tx[:num_clients]
+    if spec.staleness_hist:
+        stale = staleness_histogram(
+            torch.zeros(spec.staleness_bins, dtype=torch.int32, device=dev),
+            tr.stale, tr.delivered)
+    if spec.energy_by_cause:
+        ec = energy_by_cause(tr.e_p, tr.forced_p, tr.base_p)
+    return MetricsState(tx_count=tx, stale_hist=stale, energy_cause=ec,
+                        rounds=torch.tensor(rounds, dtype=torch.int32,
+                                            device=dev))
 
 
 def build_participation_program(policy_fn, cfg, cell: CellConfig,
                                 num_clients: int, bucket: int,
                                 hoist_rounds: bool | None = None) -> Callable:
     """Phase A: ``(h_rounds [T, K], base_key) -> (last_tx [K], energy [K],
-    ParticipationTrace[T])``.
+    ParticipationTrace[T])``, and a fourth output, the ledger taps'
+    :class:`~repro_torch.obs.taps.MetricsState`, when ``cfg.metrics``
+    enables any.
 
     The policy must be ``state_free`` or a *ledger* policy reading only the
     ``(round, last_tx)`` view phase A carries: state-free policies answer
@@ -174,6 +218,8 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
             "reading trained parameters must use the dense engine")
     K = num_clients
     faults = cfg.faults
+    # guards play no part in the ledger taps
+    ltap = metrics_active(cfg.metrics, None, parts="ledger")
     full_hoist = hoist and faults is None and cfg.max_staleness is None
     if hoist_rounds is not None:
         if hoist_rounds and not full_hoist:
@@ -182,6 +228,12 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
                 "and max_staleness=None (everything else carries sequential "
                 "state through the rounds)")
         full_hoist = bool(hoist_rounds)
+
+    def taps(out):
+        if not ltap:
+            return out
+        return out + (_reduce_ledger_taps(out[2], cfg.metrics, K,
+                                          cfg.rounds),)
 
     @torch.no_grad()
     def program(h_rounds, base_key):
@@ -206,9 +258,10 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
                                     dim=0).values
             lt_excl = torch.cat([zeros[None], lt_inc[:-1]])
             slot_excl = torch.cat([zeros[None], slot_inc[:-1]])
+            # no forcing and no faults: nothing forced, e_base = e_round
             tr = _compact(mask, e_all, probs_all, tsc, lt_excl, slot_excl,
-                          bucket)
-            return lt_inc[-1], torch.sum(e_all, dim=0), tr
+                          bucket, taps=ltap)
+            return taps((lt_inc[-1], torch.sum(e_all, dim=0), tr))
 
         last_tx, anchor_slot = zeros, zeros
         energy = torch.zeros(K, dtype=torch.float32, device=dev)
@@ -221,8 +274,9 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
             view = _DecisionView(round=ts[t], last_tx=last_tx)
             probs, w = ((probs_all[t], w_all[t]) if hoist
                         else policy_fn(t, h_t, view))
-            mask, _, _, e_round = apply_round_decision(
+            mask, forced, _, e_round = apply_round_decision(
                 probs, w, t, h_t, view, base_key, cfg, cell, K)
+            e_base = e_round
             delivered = corrupt = None
             if faults is not None:   # the dense engine's salted streams
                 out, fstate = apply_faults(t, base_key, mask, e_round,
@@ -231,7 +285,8 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
                                                out.e_round)
             energy = energy + e_round
             rows.append(_compact(mask, e_round, probs, t, last_tx,
-                                 anchor_slot, bucket, delivered, corrupt))
+                                 anchor_slot, bucket, delivered, corrupt,
+                                 ltap, forced, e_base))
             # the ledgers advance on delivered uploads: a lost one's
             # staleness keeps growing
             fire = (mask if delivered is None else delivered) > 0
@@ -240,7 +295,7 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
         tr = ParticipationTrace(*(None if lanes[0] is None
                                   else torch.stack(lanes)
                                   for lanes in zip(*rows)))
-        return last_tx, energy, tr
+        return taps((last_tx, energy, tr))
 
     return program
 
@@ -262,7 +317,7 @@ def _train_cache_key(cfg, opt_token, loss_fn, acc_fn, params, sample_shape,
     return (bucket, cfg.rounds, cfg.local_iters, cfg.batch_size,
             cfg.eval_every, opt_token, id(loss_fn), id(acc_fn), shapes,
             tuple(sample_shape), tuple(test_shape), repr(cfg.faults),
-            repr(cfg.guards), repr(cfg.aggregator))
+            repr(cfg.guards), repr(cfg.aggregator), repr(cfg.metrics))
 
 
 def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
@@ -270,7 +325,9 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
     """Phase B: ``(params, xb [T,P,L,B,...], yb [T,P,L,B], valid [T,P],
     slot [T,P], num_clients, test_x, test_y[, delivered, corrupt, stale,
     probs, agg_params]) -> (global [W], (acc [T], loss [T], did_eval
-    [T]))``.
+    [T]))``, and a third output, the train taps'
+    :class:`~repro_torch.obs.taps.MetricsState` over the bucket, when
+    ``cfg.metrics`` enables any.
 
     No tensor of the program has a K-sized axis: the carry is the history
     ``[T+1, W]``, training runs over the ``[P, W]`` bucket, and the 1/K of
@@ -294,6 +351,7 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
         else None
     agg = cfg.aggregator
     faults = cfg.faults
+    ttap = metrics_active(cfg.metrics, guards, parts="train")
 
     @torch.no_grad()
     def program(params, xb_all, yb_all, valid_all, slot_all, num_clients,
@@ -320,6 +378,7 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
         accs = torch.zeros(T, dtype=torch.float32, device=dev)
         losses = torch.zeros(T, dtype=torch.float32, device=dev)
         did = torch.zeros(T, dtype=torch.bool)
+        ms = init_metrics(cfg.metrics, 0, guards, parts="train", device=dev)
         for t in range(T):
             anchors = hist[slot_all[t].long()]
             deltas = local_train(anchors, xb_all[t], yb_all[t],
@@ -339,12 +398,18 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
                 g_new = subset_aggregate(hist[t], deltas, deliv,
                                          num_clients)
             hist[t + 1] = g_new
+            if ttap:
+                ms = update_train_taps(
+                    ms, cfg.metrics, deltas=deltas, delivered=deliv,
+                    staleness=stale_all[t], probs=probs_all[t],
+                    num_clients=num_clients, guards=guards, agg_params=ap)
             if t % cfg.eval_every == 0 or t == T - 1:
                 g = layout.unflatten(g_new)
                 accs[t] = acc_fn(g, test_x, test_y)
                 losses[t] = loss_fn(g, test_x, test_y)
                 did[t] = True
-        return hist[T], (accs, losses, did)
+        out = (hist[T], (accs, losses, did))
+        return out + (ms,) if ttap else out
 
     return program
 
@@ -430,7 +495,9 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
         raise ValueError(
             "the sparse path evaluates in its round loop; eval_mode='replay' "
             "belongs to the resumable dense path (fl.resume)")
-    check_ported(cfg)
+    check_modes(cfg)
+    ltap = metrics_active(cfg.metrics, None, parts="ledger")
+    ttap = metrics_active(cfg.metrics, cfg.guards, parts="train")
     if store is None:
         store = from_client_datasets(client_data, device=device)
     K = store.num_clients
@@ -439,6 +506,7 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
     test_y = test_ds.y[: cfg.eval_batch].to(device)
     T = cfg.rounds
     tel = get_telemetry()
+    emit_run_manifest("make_sparse_runner", cfg, extra={"num_clients": K})
     phase_a: dict = {}
 
     def _phase_a(bucket: int, h_rounds, key):
@@ -449,8 +517,8 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
         else:
             tel.inc("sparse.phase_a_cache_hit")
         with tel.span("sparse.phase_a"):
-            last_tx, energy, ptr = phase_a[bucket](h_rounds, key)
-            return last_tx, energy, ptr, ptr.n_tx.cpu().numpy()
+            out = phase_a[bucket](h_rounds, key)
+            return out, out[2].n_tx.cpu().numpy()
 
     def runner(params, h_all, seed: int | None = None,
                agg_params=None) -> SimResult:
@@ -458,7 +526,7 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
         h_rounds = torch.as_tensor(h_all, dtype=torch.float32).to(device).T
         bucket = cfg.participant_bucket or _auto_bucket(policy_fn, h_rounds,
                                                         cfg, K)
-        last_tx, energy, ptr, n_tx = _phase_a(bucket, h_rounds, key)
+        pa, n_tx = _phase_a(bucket, h_rounds, key)
         if (n_tx > bucket).any():
             if cfg.overflow == "error":
                 raise RuntimeError(
@@ -475,7 +543,9 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
             grown = min(grown, K)
             _warn_spill_once(bucket, grown, int(n_tx.max()))
             bucket = grown
-            last_tx, energy, ptr, n_tx = _phase_a(bucket, h_rounds, key)
+            pa, n_tx = _phase_a(bucket, h_rounds, key)
+        last_tx, energy, ptr = pa[:3]
+        ms_a = pa[3] if ltap else None
         train = train_program or _cached_train_program(
             _train_cache_key(cfg, opt_token, loss_fn, acc_fn, params,
                              store.x.shape[2:], test_x.shape, bucket),
@@ -484,11 +554,13 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
             xb_all, yb_all = gather_participant_rounds(
                 store, data_key, ptr.part_idx, cfg.local_iters,
                 cfg.batch_size)
-            g_final, (accs, losses, did) = train(
+            out = train(
                 params, xb_all, yb_all, ptr.valid, ptr.anchor_slot, K,
                 test_x, test_y, ptr.delivered, ptr.corrupt, ptr.stale,
                 ptr.prob, agg_params)
+            g_final, (accs, losses, did) = out[:2]
             accs, losses = accs.cpu().numpy(), losses.cpu().numpy()
+        ms_b = out[2] if ttap else None
 
         # host-side densification of the participant trace (numpy, O(T·K))
         idx = ptr.part_idx.cpu().numpy()
@@ -523,7 +595,8 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
             delivered=dense(ptr.delivered) if cfg.faults is not None
             else None,
             corrupted=dense(ptr.corrupt) if cfg.faults is not None
-            else None)
+            else None,
+            metrics=metrics_numpy(merge_metrics(ms_a, ms_b)))
 
     runner.store = store
     return runner

@@ -1,16 +1,22 @@
-"""Host-side telemetry: spans, counters and run manifests.  The part of
-``repro.obs.telemetry`` that ``launch.generate`` uses.
+"""Host-side telemetry: spans, counters, memory snapshots, run manifests
+and profiler captures (counterpart of ``repro.obs.telemetry``).
 
-The in-memory record is always on (dict updates); writing to disk
-is opt-in: with ``REPRO_OBS_DIR`` set, run manifests append to
-``<dir>/runs.jsonl``, one JSON object a line, in the JAX package's schema
-(``schema_version``, ``kind``, ``written_unix``, ``config_sha``,
-``fingerprint``, ``extra``).  The fingerprint names torch and CUDA where the
-JAX package's names JAX.
+Everything here is host Python around the device work; it changes no
+round's arithmetic.  The in-memory record is always on (dict updates);
+writing to disk is opt-in:
 
-Spans aggregate per name (count / total / max seconds).  A span measures
-the host clock: around work on the card it covers the enqueue unless the
-work inside ends in a synchronisation.
+* ``REPRO_OBS_DIR`` (or :func:`configure`) — run manifests append to
+  ``<dir>/runs.jsonl``, one JSON object a line, in the JAX package's schema
+  (:data:`MANIFEST_SCHEMA`, checked by :func:`validate_manifest` and
+  ``python -m repro_torch.obs.report --validate``).  The fingerprint names
+  torch and CUDA where the JAX package's names JAX and jaxlib;
+* ``REPRO_PROFILE_DIR`` (or :func:`configure`) — :func:`maybe_profile`
+  wraps a block in ``torch.profiler`` and exports a Chrome trace there.
+
+Spans aggregate per name (count / total / max seconds), so a million
+runner calls cost a bounded dict.  A span measures the host clock: around
+work on the card it covers the enqueue unless the work inside ends in a
+synchronisation.
 """
 from __future__ import annotations
 
@@ -26,7 +32,29 @@ from typing import Any
 
 import torch
 
+__all__ = ["Telemetry", "get_telemetry", "configure", "env_fingerprint",
+           "config_fingerprint", "run_manifest", "emit_run_manifest",
+           "validate_manifest", "maybe_profile", "timed_compile",
+           "MANIFEST_SCHEMA", "MANIFEST_SCHEMA_VERSION"]
+
 MANIFEST_SCHEMA_VERSION = 1
+
+#: required manifest keys -> type (``extra`` is free-form)
+MANIFEST_SCHEMA = {
+    "schema_version": int,
+    "kind": str,
+    "written_unix": float,
+    "config_sha": str,
+    "fingerprint": dict,
+    "extra": dict,
+}
+
+#: the fingerprint's required keys: JAX's, with ``torch`` and ``cuda`` in
+#: place of ``jax`` and ``jaxlib``
+_FINGERPRINT_KEYS = ("git_sha", "torch", "cuda", "backend", "device_count",
+                     "cpu_count", "platform", "python")
+
+#: cap on the in-memory manifest record (old entries rotate out)
 _MAX_MANIFESTS = 256
 
 
@@ -63,13 +91,53 @@ class Telemetry:
         return {"count": c[0], "total_s": c[1], "max_s": c[2],
                 "mean_s": c[1] / max(c[0], 1)}
 
+    def snapshot(self) -> dict:
+        return {"counters": dict(self.counters),
+                "spans": {k: self.span_stats(k) for k in self.spans}}
+
+    def memory_snapshot(self) -> list:
+        """Each card's current and peak allocated bytes
+        (``torch.cuda.memory_stats``); with no card, one CPU entry whose
+        values are ``None``, as JAX's CPU backend gives."""
+        if not torch.cuda.is_available():
+            return [{"device": "cpu", "bytes_in_use": None,
+                     "peak_bytes_in_use": None}]
+        out = []
+        for i in range(torch.cuda.device_count()):
+            stats = torch.cuda.memory_stats(i)
+            out.append({
+                "device": f"cuda:{i} {torch.cuda.get_device_name(i)}",
+                "bytes_in_use": stats.get("allocated_bytes.all.current"),
+                "peak_bytes_in_use": stats.get("allocated_bytes.all.peak")})
+        return out
+
 
 _TELEMETRY = Telemetry()
+_OBS_DIR: str | None = None
+_PROFILE_DIR: str | None = None
 
 
 def get_telemetry() -> Telemetry:
     """The process-wide sink (the JAX package's, likewise, is one)."""
     return _TELEMETRY
+
+
+def configure(obs_dir: str | None = None,
+              profile_dir: str | None = None) -> None:
+    """Programmatic opt-in (overrides the environment variables)."""
+    global _OBS_DIR, _PROFILE_DIR
+    if obs_dir is not None:
+        _OBS_DIR = obs_dir
+    if profile_dir is not None:
+        _PROFILE_DIR = profile_dir
+
+
+def _obs_dir() -> str | None:
+    return _OBS_DIR or os.environ.get("REPRO_OBS_DIR") or None
+
+
+def _profile_dir() -> str | None:
+    return _PROFILE_DIR or os.environ.get("REPRO_PROFILE_DIR") or None
 
 
 @functools.lru_cache(maxsize=1)
@@ -119,15 +187,80 @@ def run_manifest(kind: str, cfg: Any = None,
 
 def emit_run_manifest(kind: str, cfg: Any = None,
                       extra: dict | None = None) -> dict:
-    """Record a manifest in the process telemetry and, when
-    ``REPRO_OBS_DIR`` is set, append it to ``<dir>/runs.jsonl``."""
+    """Record a manifest in the process telemetry and, when an obs dir is
+    configured, append it to ``<dir>/runs.jsonl``.  Called by
+    ``make_runner``, ``make_sparse_runner``, the ``run_*_matrix`` sweeps,
+    ``run_resumable`` and ``launch.generate``."""
     m = run_manifest(kind, cfg, extra)
     tel = get_telemetry()
     tel.manifests.append(m)
     del tel.manifests[:-_MAX_MANIFESTS]
-    d = os.environ.get("REPRO_OBS_DIR")
+    d = _obs_dir()
     if d:
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, "runs.jsonl"), "a") as f:
             f.write(json.dumps(m, default=float) + "\n")
     return m
+
+
+def validate_manifest(m: dict) -> list:
+    """Schema check: a list of problems (empty = valid)."""
+    if not isinstance(m, dict):
+        return [f"manifest is {type(m).__name__}, expected dict"]
+    problems = []
+    for key, typ in MANIFEST_SCHEMA.items():
+        if key not in m:
+            problems.append(f"missing key {key!r}")
+        elif typ is float and isinstance(m[key], (int, float)):
+            pass
+        elif not isinstance(m[key], typ):
+            problems.append(f"key {key!r}: {type(m[key]).__name__}, "
+                            f"expected {typ.__name__}")
+    fp = m.get("fingerprint")
+    if isinstance(fp, dict):
+        problems += [f"fingerprint missing {k!r}"
+                     for k in _FINGERPRINT_KEYS if k not in fp]
+    return problems
+
+
+@contextlib.contextmanager
+def maybe_profile(out_dir: str | None = None):
+    """Opt-in ``torch.profiler`` capture of the block (CPU, and CUDA where
+    a card is visible), exported as a Chrome trace
+    ``<dir>/trace_<pid>_<n>.json``: a no-op unless ``out_dir`` is given or
+    ``REPRO_PROFILE_DIR``/:func:`configure` set one.  Yields the directory
+    (``None`` when off)."""
+    d = out_dir or _profile_dir()
+    if not d:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(d, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    tel = get_telemetry()
+    tel.inc("profile.captures")
+    with profile(activities=acts) as prof:
+        yield d
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        d, f"trace_{os.getpid()}_{tel.counters['profile.captures']}.json"))
+
+
+def timed_compile(fn, *args, label: str = "jit"):
+    """The eager counterpart of JAX's AOT ``timed_compile``: there is no
+    trace, lowering or compile stage to time, so the first call
+    ``fn(*args)`` runs under the ``<label>.compile`` span — what a first
+    call pays here: kernels built at first use, cuBLAS handles, the
+    caching allocator's first blocks — followed by a synchronisation of
+    the card (when one is visible) inside the span.  Returns ``fn``, ready
+    for its warm calls; wrap those in ``span(f"{label}.execute")``.  No
+    ``<label>.trace`` or ``<label>.lower`` span is recorded."""
+    with get_telemetry().span(f"{label}.compile"):
+        fn(*args)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    return fn

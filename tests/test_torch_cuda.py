@@ -3,8 +3,10 @@ a small simulation on the card against the same run on the CPU, the sparse
 engine against the dense one on the card, faulty runs and a scheme matrix
 on the card against the CPU, the stream path against the device path and
 a killed-and-resumed run against an uninterrupted one on the card, the
-stream sampler's pinned side-stream copy, and ``shard_store`` on the card
-against the CPU.
+stream sampler's pinned side-stream copy, ``shard_store`` on the card
+against the CPU, tapped runs on the three paths (tapped = untapped, card =
+CPU, taps included), the legacy loop against the dense engine, and the
+card's memory snapshot, profile and ``timed_compile``.
 
 Every test here is marked ``cuda`` and skips where there is no card.  This
 file imports neither JAX nor the JAX package, so it also runs on a host that
@@ -30,10 +32,12 @@ from repro_torch.fl import (AggregatorConfig, FaultConfig, GuardConfig,
                             SchemeSpec, SimConfig, guarded_aggregate,
                             make_runner, make_sparse_runner, run_resumable,
                             run_scheme_matrix, run_simulation,
-                            scheme_aggregate)
+                            run_simulation_legacy, scheme_aggregate)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
 from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
+from repro_torch.obs import MetricsSpec, maybe_profile, timed_compile
+from repro_torch.obs.telemetry import get_telemetry
 
 pytestmark = pytest.mark.cuda
 
@@ -470,3 +474,96 @@ def test_shard_store_on_the_card_matches_the_cpu(card):
     for a, b in zip(got, want):
         assert a.is_cuda
         assert torch.equal(a.cpu(), b)
+
+
+def taps_close(got, want):
+    """Integer taps bit for bit, float taps at rtol 1e-4, atol 1e-5."""
+    for name in got._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), name
+        if a is None:
+            continue
+        if a.dtype.kind == "i":
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("path", ["dense", "legacy", "sparse"])
+def test_tapped_runs_on_the_card(card, path):
+    """Every tap on, under faults, guards and the fedasync aggregator: the
+    tapped run equals the untapped one bit for bit on the card, launches
+    K1 once a round (weighted mode), and equals the CPU's run, taps
+    included."""
+    K, T = 12, 10
+    clients, test, h, params = small_world(card, K, T)
+    cfg = SimConfig(rounds=T, local_iters=2, batch_size=4, eval_every=3,
+                    participant_bucket=K, faults=FAULTS,
+                    guards=GuardConfig(quarantine=True, clip_norm=10.0),
+                    aggregator=AggregatorConfig(kind="fedasync",
+                                                staleness_fn="poly"),
+                    metrics=MetricsSpec(), **SPARSE_KW)
+    policy, cell = RandomScheme(0.5, K), CellConfig(num_clients=K)
+
+    def run(c, args, device=None):
+        if path == "legacy":
+            return run_simulation_legacy(*args[:7], cell, c, device=device)
+        return run_simulation(*args[:7], cell,
+                              dataclasses.replace(c, participation=path),
+                              device=device)
+
+    args = (params, mlp_loss, mlp_accuracy, clients, test, policy, h)
+    fl_aggregate_cuda.launches = fl_aggregate_cuda.guarded_launches = 0
+    on = run(cfg, args)
+    assert (fl_aggregate_cuda.launches,
+            fl_aggregate_cuda.guarded_launches) == (T, T)
+    off = run(dataclasses.replace(cfg, metrics=None), args)
+    assert off.metrics is None and on.metrics is not None
+    for name in ("participation", "eval_rounds", "test_acc", "test_loss",
+                 "energy_per_client", "energy_timeline", "delivered",
+                 "corrupted"):
+        np.testing.assert_array_equal(getattr(on, name), getattr(off, name),
+                                      err_msg=name)
+    assert torch.equal(on.state.global_params, off.state.global_params)
+    assert torch.equal(on.state.last_tx, off.state.last_tx)
+    c_clients, c_test, c_h, c_params = cpu_args(clients, test, h, params)
+    cpu = run(cfg, (c_params, mlp_loss, mlp_accuracy, c_clients, c_test,
+                    policy, c_h), device="cpu")
+    assert_same_faulty_run(on, cpu)
+    taps_close(on.metrics, cpu.metrics)
+    assert on.metrics.guard_events[0] >= 1
+
+
+def test_legacy_loop_on_the_card_matches_the_dense_engine(card):
+    K, T = 12, 10
+    clients, test, h, params = small_world(card, K, T)
+    cfg = SimConfig(**STREAM_BASE)
+    args = (params, mlp_loss, mlp_accuracy, clients, test,
+            RandomScheme(0.5, K), h, CellConfig(num_clients=K), cfg)
+    legacy = run_simulation_legacy(*args)
+    dense = run_simulation(*args)
+    assert legacy.state.global_params.is_cuda
+    np.testing.assert_array_equal(legacy.participation, dense.participation)
+    assert torch.equal(legacy.state.last_tx, dense.state.last_tx)
+    for name in ("energy_per_client", "energy_timeline", "test_acc",
+                 "test_loss"):
+        np.testing.assert_allclose(getattr(legacy, name),
+                                   getattr(dense, name), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_memory_snapshot_and_profile_on_the_card(card, tmp_path):
+    tel = get_telemetry()
+    x = torch.ones(1 << 20, device=card)
+    snap = tel.memory_snapshot()
+    assert snap[0]["device"].startswith("cuda:0")
+    assert snap[0]["bytes_in_use"] >= x.numel() * 4
+    assert snap[0]["peak_bytes_in_use"] >= snap[0]["bytes_in_use"]
+    with maybe_profile(str(tmp_path)) as d:
+        (x * 2).sum().item()
+    files = list(tmp_path.iterdir())
+    assert d == str(tmp_path) and len(files) == 1
+    fn = timed_compile(lambda v: (v * 2).sum(), x, label="cuda_test")
+    assert float(fn(x)) == 2.0 * x.numel()
+    assert tel.span_stats("cuda_test.compile")["count"] >= 1

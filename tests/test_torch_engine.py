@@ -42,6 +42,7 @@ from repro_torch.fl import (AggregatorConfig, GuardConfig, SimConfig,
                             grant_forced_bandwidth, make_runner,
                             run_simulation)
 from repro_torch.models.small import mlp_accuracy, mlp_loss
+from repro_torch.obs import MetricsSpec
 
 K, T = 10, 6
 RTOL, ATOL = 1e-4, 1e-5
@@ -229,16 +230,22 @@ def test_guards_and_aggregator_are_ported(world, field, value):
 @pytest.mark.parametrize("field,value", [
     # faults are ported (tests/test_torch_faults.py), the data paths,
     # eval_mode, checkpoint_every and stream_chunk too
-    # (tests/test_torch_datapath.py, tests/test_torch_resume.py); the
-    # metrics case keeps the id it had beside them
-    pytest.param("metrics", object(), id="metrics-value1"),
+    # (tests/test_torch_datapath.py, tests/test_torch_resume.py), and now
+    # metrics (tests/test_torch_obs.py); the metrics case keeps the id it
+    # had when it expected NotImplementedError
+    pytest.param("metrics", MetricsSpec(), id="metrics-value1"),
 ])
 def test_unported_settings_raise(world, field, value):
+    """No setting is left unported: the last one that raised now runs and
+    fills ``SimResult.metrics``."""
     cfg = dataclasses.replace(SimConfig(rounds=2), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        make_runner(mlp_loss, mlp_accuracy, world["t_clients"],
-                    world["t_test"], policies("random")[1],
-                    CellConfig(num_clients=K), cfg, device="cpu")
+    res = make_runner(mlp_loss, mlp_accuracy, world["t_clients"],
+                      world["t_test"], policies("random")[1],
+                      CellConfig(num_clients=K), cfg, device="cpu")(
+        world["t_params"], world["t_h"][:, :2])
+    np.testing.assert_array_equal(res.metrics.tx_count,
+                                  res.participation.sum(axis=0))
+    assert int(res.metrics.rounds) == 2
 
 
 @pytest.mark.parametrize("extra,error", [

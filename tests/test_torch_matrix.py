@@ -52,6 +52,7 @@ from repro_torch.fl import (AggregatorConfig, MatrixResult,
                             train_trace_count)
 from repro_torch.fl.faults import FaultConfig
 from repro_torch.models.small import mlp_accuracy, mlp_loss
+from repro_torch.obs import MetricsSpec
 
 K, T, DIM = 5, 8, 32
 RTOL, ATOL = 1e-4, 1e-5        # tests/golden/harness.py
@@ -298,7 +299,7 @@ def test_default_scheme_panel_shape():
 
 
 def _metrics_calls(world):
-    cfg = SimConfig(**BASE, metrics=object())
+    cfg = SimConfig(**BASE, metrics=MetricsSpec())
     args = (world["t_params"], mlp_loss, mlp_accuracy)
     cell = CellConfig(num_clients=K)
     spec = ProblemSpec(cell=cell, rho=0.05, num_rounds=T)
@@ -328,8 +329,20 @@ def _metrics_calls(world):
 @pytest.mark.parametrize("sweep", ["seed", "scenario", "scheme-dense",
                                     "scheme-sparse", "fault"])
 def test_metrics_raise_in_every_matrix_sweep(world, sweep):
-    with pytest.raises(NotImplementedError, match="metrics"):
-        _metrics_calls(world)[sweep]()
+    """Every matrix sweep now runs the taps (these cases expected
+    ``NotImplementedError`` before the taps were ported): each lane's
+    MetricsState, stacked on the lane axes, counts the lane's decisions."""
+    out = _metrics_calls(world)[sweep]()
+    if sweep == "fault":
+        for name, ms in out.metrics.items():
+            np.testing.assert_array_equal(
+                ms.tx_count, np.asarray(out.delivered[name]).sum(axis=1))
+        return
+    lanes = out.participation.shape[:-2]
+    assert out.metrics.tx_count.shape == lanes + (K,)
+    np.testing.assert_array_equal(out.metrics.tx_count,
+                                  out.participation.sum(axis=-2))
+    assert (out.metrics.rounds == T).all()
 
 
 @pytest.mark.parametrize("kw,error,match", [
@@ -375,8 +388,7 @@ def test_fl_exports_the_jax_names_of_what_is_ported():
     engine's own pieces (an eager loop has no whole-run scan program)."""
     import repro.fl as jfl
     import repro_torch.fl as tfl
-    scan_only = {"build_scan_sim", "run_simulation_scan",
-                 "run_simulation_legacy"}
+    scan_only = {"build_scan_sim", "run_simulation_scan"}
     not_yet = set()
     missing = set(jfl.__all__) - set(tfl.__all__) - scan_only - not_yet
     assert not missing, sorted(missing)
