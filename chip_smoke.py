@@ -15,12 +15,14 @@ Phases, each reporting on its own lines:
    (narrow, misaligned rows, several tiles a block), aligned and misaligned
    views, against its plain PyTorch version on the card; NaN/Inf with the
    guard on and off at R 4 and 64; two launches bit-equal; then CUDA-event
-   timings of the kernel and ``torch.addmv`` with the L2 dirty, clean and
-   warm (``time_ms``), and of the plain version, at R 10, 64, 100 and 1000
-   (M 159,012), R 10 and 100 (M 199,210) and bf16 R 100, beside the
-   bandwidth bound and the time of a trivial launch; the launch plans the
-   design rejected, timed beside the one it takes; the wrapper's host time
-   a call;
+   timings of the kernel and ``torch.addmv`` (with the mode's folded
+   weights) with the L2 dirty, clean and warm (``time_ms``), and of the
+   plain version: plain mode at R 10, 64, 100 and 1000 (M 159,012), R 10
+   and 100 (M 199,210), bf16 R 100 and the CNN's R 10 × M 620,364; subset
+   mode at the serve buckets R 8, 16, 32 and 64 and weighted mode at R 10
+   and 64 (M 159,012) — beside the bandwidth bound and the time of a
+   trivial launch; the launch plans the design rejected, timed beside the
+   one it takes; the wrapper's host time a call;
 3. slice — the quickstart simulation at full width and data scale (K = 10,
    the 784-200-10 MLP, 60,000/10,000 MNIST-like examples, non-IID d = 5,
    T = 12 rounds of 5 local steps of batch 10, ρ = 0.05, λ = 0.01) for
@@ -121,9 +123,38 @@ Phases, each reporting on its own lines:
    ``python -m repro_torch.obs.report --validate --summary`` on a
    ``runs.jsonl`` written under a temporary ``REPRO_OBS_DIR``, one tapped
    round under ``maybe_profile`` leaving a trace, ``memory_snapshot`` and
-   ``timed_compile`` on the card; then every (mode, dtype, R, M) that
-   phases 3 to 3f gave K1 is held against the plain version (by phase 2's
-   sweep, or checked there and then);
+   ``timed_compile`` on the card;
+3g. the entry points, the CNN and the serve front door, each card run held
+   against the same run on the CPU (masks, ``last_tx`` and decision logs
+   bit for bit, floats within rtol 1e-4, atol 1e-5, but for two models
+   that local SGD's chaos moves further: the train CLI's after 30 rounds
+   is measured, and the CNN's after 12 rounds held to a relative L2 of
+   1e-2 beside the CPU's own one-ulp nudge): (a)
+   ``examples/quickstart_torch.main`` as the JAX script runs it;
+   ``launch.train.main`` at its defaults (K 10, 5,000 examples, d 5, T 30)
+   with ``--scheme random`` and ``proposed``, each ``--ckpt`` written and
+   loaded back; ``examples/mnist_fl_schemes_torch.main --rounds 12`` (cut
+   from 200 for time: each proposed round is a (P1') solve); (b) the CNN
+   at the paper's data scale: ``make_cifar_like``'s defaults (50,000 /
+   10,000 × 3,072 float32 on the card), K 10, d 5, ``init_cnn``'s default
+   widths (620,362 params), T 12 × L 5 × B 10 under RandomScheme(0.1) and
+   ProposedOnline, K1 plain once a round at R 10 × M 620,364, a warm round
+   timed; (c) benchmarks/bench_serve.py's --quick setting with the
+   paper's MLP for its dim-16 model (K 1,000 clients × 8 examples of dim
+   784, ``ServeConfig(max_batch=64, min_bucket=8, flush_interval_s=0.002,
+   queue_capacity=256, policy_refresh_min_interval_s=2.0)``, the online
+   policy at ρ 0.05 on 64 rounds of gains; cut from its full K 4,000,
+   2,000 uploads and 8 workers, which took 312.4 s): warm 64-row flushes
+   timed, a client step timed alone, then the ``throughput`` and
+   ``paper`` load modes, 500 uploads on 4 workers after a warm-up burst
+   of 128, uploads/s, admission p50/p95,
+   occupancy, the ``serve.flush`` and ``serve.policy_refresh`` spans, K1's
+   subset launches by bucket and ``verify_replay`` on each session; then
+   tests/test_serve.py's manual sessions (plain; guards with csmaafl, K1's
+   weighted mode) on the card and the CPU with the same uploads: equal
+   decision logs and ledgers, models within tolerance; then every (mode,
+   dtype, R, M) that phases 3 to 3g gave K1 is held against the plain
+   version (by phase 2's sweep, or checked there and then);
 4. attention kernel — K2 (``flash_attention``) against its plain version on
    the card: the sweeps of tests/test_kernels.py (MHA, GQA 2:1 and 4:1,
    MQA, hd 64 and 128), windows 1 to 128, ``causal=False``, ragged S (1,
@@ -176,8 +207,9 @@ order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(K1, K2 and K3), each with its launches on its main path (phases 3 to 3f
-for K1, also counted by mode: plain, subset and weighted, with the
+(K1, K2 and K3), each with its launches on its main path (phases 3 to 3g
+for K1, also counted by mode: plain, subset and weighted, and phase 3g's
+alone by mode, with the
 non-finite rows phase 3d's faulty runs reduced; the generate
 run of phase 5a for K2, that of phase 7a for K3) and its times at the main
 path's shape.
@@ -387,7 +419,7 @@ def check_kernel(torch):
 
 
 def check_main_shapes(torch, checked) -> None:
-    """Every ``(mode, dtype, R, M)`` the main path (phases 3 to 3f) gave K1
+    """Every ``(mode, dtype, R, M)`` the main path (phases 3 to 3g) gave K1
     is held against the plain version: the shapes phase 2 did not sweep
     are checked here, at both alignments, on fresh inputs."""
     from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
@@ -434,6 +466,19 @@ def time_ms(torch, fn, flush, iters=100, warmup=5, l2="dirty"):
 
 
 L2_MODES = ("dirty", "clean", "warm")
+CNN_M = 620_364    # the CNN's 620,362 params + 2 zero columns (ParamLayout)
+# K1's timed (mode, R, M, dtype): plain at the dense main path's R 10 (the
+# MLP and the CNN), the sparse bucket R 64, R 100 and the dense R 1000;
+# subset at the serve buckets R 8-64; weighted at R 10 (the panel, guards)
+# and R 64 (a guarded or scheme serve flush); M 199,210 and bf16 beside
+TIMED_SHAPES = (
+    ("plain", K, MAIN_M, "float32"), ("plain", 64, MAIN_M, "float32"),
+    ("plain", 100, MAIN_M, "float32"), ("plain", 1000, MAIN_M, "float32"),
+    ("plain", K, 199_210, "float32"), ("plain", 100, 199_210, "float32"),
+    ("plain", 100, MAIN_M, "bfloat16"), ("plain", K, CNN_M, "float32"),
+    ("subset", 8, MAIN_M, "float32"), ("subset", 16, MAIN_M, "float32"),
+    ("subset", 32, MAIN_M, "float32"), ("subset", 64, MAIN_M, "float32"),
+    ("guarded", K, MAIN_M, "float32"), ("guarded", 64, MAIN_M, "float32"))
 
 
 def time_kernel(torch, bandwidth):
@@ -446,32 +491,33 @@ def time_kernel(torch, bandwidth):
     log("[kernel-time] floor: a 4-byte zero_() between its events takes "
         + ", ".join(f"{floor[l2]:.4f} ms ({l2})" for l2 in L2_MODES))
     rows = {}
-    for R, M, dname in ((K, MAIN_M, "float32"), (64, MAIN_M, "float32"),
-                        (100, MAIN_M, "float32"), (1000, MAIN_M, "float32"),
-                        (K, 199_210, "float32"), (100, 199_210, "float32"),
-                        (100, MAIN_M, "bfloat16")):
+    for mode, R, M, dname in TIMED_SHAPES:
         dtype = getattr(torch, dname)
-        g, d, mask, _ = kernel_inputs(torch, R, M, dtype, gen)
-        lmask = mask.to(dtype)
-        lib = torch.addmv(g, d.T, lmask, alpha=1.0 / R)
-        torch.testing.assert_close(lib.float(),
-                                   ref.fl_aggregate_ref(g, d, mask).float(),
-                                   **TOL[dname])
+        g, d, mask, w = kernel_inputs(torch, R, M, dtype, gen)
+        # the one addmv call with the mode's folded weight vector (the
+        # guard's zeroing of non-finite elements has no library form; these
+        # inputs are finite)
+        lw = {"plain": mask / R, "subset": mask / (3 * R),
+              "guarded": w}[mode].to(dtype)
+        lib = torch.addmv(g, d.T, lw)
+        torch.testing.assert_close(
+            lib.float(), run_mode(ops, ref, mode, g, d, mask, w,
+                                  False).float(), **TOL[dname])
         iters = 30 if R == 1000 else 100
         t_kernel, t_lib = {}, {}
         for l2 in L2_MODES:
-            t_kernel[l2] = time_ms(torch, lambda: ops.fl_aggregate(g, d, mask),
-                                   flush, iters, l2=l2)
-            t_lib[l2] = time_ms(torch, lambda: torch.addmv(
-                g, d.T, lmask, alpha=1.0 / R), flush, iters, l2=l2)
-        t_plain = time_ms(torch, lambda: ref.fl_aggregate_ref(g, d, mask),
-                          flush, iters)
+            t_kernel[l2] = time_ms(torch, lambda: run_mode(
+                ops, ref, mode, g, d, mask, w, True), flush, iters, l2=l2)
+            t_lib[l2] = time_ms(torch, lambda: torch.addmv(g, d.T, lw),
+                                flush, iters, l2=l2)
+        t_plain = time_ms(torch, lambda: run_mode(ops, ref, mode, g, d, mask,
+                                                  w, False), flush, iters)
         elem = g.element_size()
         nbytes = (R * M + 2 * M) * elem + R * 4
         t_bytes = nbytes / bandwidth * 1e3
         t_ops = 2 * R * M / FP32_PEAK * 1e3
         bound = max(t_bytes, t_ops)
-        rows[(R, M, dname)] = dict(
+        rows[(mode, R, M, dname)] = dict(
             ms=t_kernel["dirty"], plain_ms=t_plain,
             library_ms=t_lib["dirty"], bound_ms=bound,
             bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -479,7 +525,8 @@ def time_kernel(torch, bandwidth):
             R, M, elem, torch.cuda.get_device_properties(0).multi_processor_count)
         path = (f"direct {plan.direct} rows" if plan.direct == R else
                 f"ring {plan.stages} x {plan.rows} rows")
-        log(f"[kernel-time] R={R} M={M} {dname} ({path}, bound {bound:.4f} ms "
+        log(f"[kernel-time] {mode} R={R} M={M} {dname} ({path}, bound "
+            f"{bound:.4f} ms "
             f"= {nbytes / 1e6:.2f} MB): kernel "
             + ", ".join(f"{t_kernel[l2]:.4f}" for l2 in L2_MODES)
             + " ms; torch.addmv "
@@ -489,10 +536,11 @@ def time_kernel(torch, bandwidth):
             f"{100 * bound / t_kernel['clean']:.1f}% of the bound (dirty / "
             f"clean), {t_kernel['clean'] / t_lib['clean']:.2f}x addmv's "
             f"time (clean)")
-        if (R, M, dname) in ((K, MAIN_M, "float32"), (100, MAIN_M, "float32"),
-                             (1000, MAIN_M, "float32")):
+        if mode == "plain" and (R, M, dname) in (
+                (K, MAIN_M, "float32"), (100, MAIN_M, "float32"),
+                (1000, MAIN_M, "float32")):
             plan_steps(torch, k1, plan, g, d, mask, flush)
-        del g, d, lmask, lib
+        del g, d, lw, lib
     host_time_kernel(torch, gen)
     return rows
 
@@ -2646,6 +2694,497 @@ def observability(torch, world):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g
+# ---------------------------------------------------------------------------
+
+# examples/mnist_fl_schemes.py at 12 rounds, cut from its default 200 for
+# time: each round of the proposed scheme is a (P1') solve on the card
+FIG6_ROUNDS = 12
+# the CNN at the paper's data scale: make_cifar_like's defaults (50,000 /
+# 10,000 x 32x32x3), K 10, d 5, init_cnn's default widths, T 12 x L 5 x B 10
+CNN_T = 12
+CNN_GAP = 1e-2      # the 12-round model, card against CPU (cnn_runs)
+# benchmarks/bench_serve.py's --quick setting (bench :113-115, _session
+# :48-55), the paper's 784-200-10 MLP in place of its dim-16 linear model.
+# Cut from its full setting (K 4,000, 2,000 uploads, 8 workers), which
+# took 312.4 s on an H100 80GB HBM3 at 700 W, past phase 3g's 150 s:
+# each (P1') re-solve of the control plane held the interpreter lock
+# against the submitters for 27.5 s on average
+SERVE = dict(K=1000, uploads=500, workers=4)
+SERVE_CUT = ("bench_serve's --quick setting: its full K 4,000, 2,000 "
+             "uploads, 8 workers took 312.4 s")
+# tests/test_serve.py's manual sessions (:136-160): plain, and guards with
+# the csmaafl aggregator, on its toy world (dim 8, 4 classes, 6 examples)
+MANUAL = (("plain", 16, 40, dict(max_batch=8, min_bucket=2)),
+          ("guarded+csmaafl", 12, 24, dict(max_batch=4, min_bucket=2)))
+
+
+def example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` is the entry)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quietly(fn, *args):
+    """``fn(*args)`` with its printed lines swallowed (the CPU reruns)."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def timed(torch, fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def entry_points(torch):
+    """(a) the quickstart, the train CLI at its defaults (random and
+    proposed, ``--ckpt`` written and loaded back) and the Fig.-6 driver at
+    12 rounds, each on the card and on the CPU."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch import train
+
+    qs = example("quickstart_torch")
+    card, wall = timed(torch, qs.main, [])
+    cpu, cpu_wall = timed(torch, quietly, qs.main, ["--device", "cpu"])
+    for key in ("p", "w"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=SLICE_RTOL,
+                                   atol=SLICE_ATOL, err_msg=key)
+    worst = max(held_to(np, card["runs"][n], cpu["runs"][n])
+                for n in card["runs"])
+    log(f"[entry] quickstart_torch.main: card {wall:.2f} s, cpu "
+        f"{cpu_wall:.2f} s; p*, w* and both runs card = CPU (masks, last_tx "
+        f"bit for bit; worst float {worst:.3f} of the tolerance)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for scheme in ("random", "proposed"):
+            path = os.path.join(tmp, scheme)
+            got, wall = timed(torch, train.main,
+                              ["--scheme", scheme, "--ckpt", path])
+            layout, row = got.state.layout, got.state.global_params
+            restored, meta = load_checkpoint(path, layout.unflatten(row))
+            if not torch.equal(layout.flatten(restored), row) or \
+                    meta["scheme"] != scheme:
+                raise AssertionError(f"train --ckpt {scheme}: the checkpoint "
+                                     "does not load back to the model")
+            ref, cpu_wall = timed(torch, quietly, train.main,
+                                  ["--scheme", scheme, "--device", "cpu"])
+            # T 30 x 5 local steps: the model's summation-order drift
+            # passes atol 1e-5 on a few near-zero weights (1.2e-5 on an
+            # H100 80GB HBM3), so it is measured here; the masks, last_tx,
+            # eval rounds, accuracy, loss and energy are held
+            worst = held_to_cpu(np, got, ref)
+            np.testing.assert_array_equal(got.eval_rounds, ref.eval_rounds)
+            np.testing.assert_array_equal(got.state.last_tx.cpu().numpy(),
+                                          ref.state.last_tx.numpy())
+            a = got.state.global_params.cpu().numpy()
+            b = ref.state.global_params.numpy()
+            log(f"[entry] train.main --scheme {scheme} (K 10, 5,000 "
+                f"examples, d 5, T 30): card {wall:.2f} s, cpu "
+                f"{cpu_wall:.2f} s; checkpoint loaded back bit for bit; "
+                f"card = CPU: masks, last_tx, eval rounds equal, acc, loss, "
+                f"energy within the tolerance (worst {worst:.3f} of it); the "
+                f"model, measured: max |card - cpu| "
+                f"{float(np.max(np.abs(a - b))):.3e}, relative L2 "
+                f"{float(np.linalg.norm(a - b) / np.linalg.norm(b)):.3e}")
+
+    fig6 = example("mnist_fl_schemes_torch")
+    argv = ["--rounds", str(FIG6_ROUNDS)]
+    card, wall = timed(torch, fig6.main, argv)
+    cpu, cpu_wall = timed(torch, quietly, fig6.main, argv + ["--device",
+                                                             "cpu"])
+    if card["k"] != cpu["k"]:
+        raise AssertionError(f"fig6: matched k {card['k']} != {cpu['k']}")
+    np.testing.assert_allclose(card["avg"], cpu["avg"], rtol=SLICE_RTOL)
+    worst = max(held_to(np, a["result"], b["result"])
+                for a, b in zip(card["rows"], cpu["rows"]))
+    log(f"[entry] mnist_fl_schemes_torch.main --rounds {FIG6_ROUNDS} (cut "
+        f"from 200 for time): card {wall:.2f} s, cpu {cpu_wall:.2f} s; "
+        f"matched k {card['k']} and the four schemes card = CPU (worst "
+        f"{worst:.3f} of the tolerance): "
+        + "; ".join(f"{r['scheme']} acc {r['final_acc']:.3f} energy "
+                    f"{r['energy_j']:.2f} J acc/J {r['acc_per_j']:.4f} gini "
+                    f"{r['gini']:.3f}" for r in card["rows"]))
+
+
+def cnn_runs(torch):
+    """(b) the CNN at the paper's data scale: RandomScheme(0.1) then
+    ProposedOnline, K1 plain once a round at R 10 x M 620,364, a warm
+    round timed, each run held against the CPU's."""
+    import numpy as np
+
+    from repro_torch import random as jr
+    from repro_torch.core import CellConfig, ProblemSpec
+    from repro_torch.core.channel import channel_gains, sample_positions
+    from repro_torch.core.selection import ProposedOnline, RandomScheme
+    from repro_torch.data import Dataset, make_cifar_like, shard_noniid
+    from repro_torch.fl import SimConfig, run_simulation
+    from repro_torch.fl.state import ParamLayout
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import cnn_accuracy, cnn_loss, init_cnn
+
+    (train, test), wall = timed(torch, make_cifar_like, jr.PRNGKey(0))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (train.x, train.y, test.x, test.y))
+    clients = shard_noniid(jr.PRNGKey(1), train, K, d=5)
+    cell = CellConfig(num_clients=K)
+    spec = ProblemSpec(cell=cell, rho=0.05, lam=0.01, num_rounds=CNN_T)
+    h = channel_gains(jr.PRNGKey(3, device="cuda"),
+                      sample_positions(jr.PRNGKey(2, device="cuda"), cell),
+                      CNN_T).T
+    params = init_cnn(jr.PRNGKey(4))
+    layout = ParamLayout.of(params)
+    if (layout.size, layout.width) != (620_362, CNN_M):
+        raise AssertionError(f"CNN row {layout.size}/{layout.width}")
+    log(f"[cnn] make_cifar_like on the card in {wall:.2f} s: "
+        f"{train.x.shape[0]} / {test.x.shape[0]} x {tuple(train.x.shape[1:])} "
+        f"float32 ({nbytes / 1e9:.3f} GB), K={K} shards of "
+        f"{[c.y.shape[0] for c in clients]}; init_cnn {layout.size} params, "
+        f"W {layout.width}")
+    cfg = SimConfig(rounds=CNN_T, local_iters=5, batch_size=10, eval_every=4)
+    runs = (("random", RandomScheme(p_bar=0.1, num_clients=K)),
+            ("proposed", ProposedOnline(spec)))
+    card = {}
+    for name, policy in runs:
+        before = k1.launches - k1.subset_launches - k1.guarded_launches
+        out, wall = timed(torch, run_simulation, params, cnn_loss,
+                          cnn_accuracy, clients, test, policy, h, cell, cfg)
+        n = k1.launches - k1.subset_launches - k1.guarded_launches - before
+        if n != CNN_T or ("plain", "float32", K, CNN_M) not in k1.shapes:
+            raise AssertionError(f"cnn {name}: K1 plain launched {n} times in "
+                                 f"{CNN_T} rounds")
+        if not all(np.isfinite(a).all() for a in (out.test_acc, out.test_loss,
+                                                   out.energy_per_client)):
+            raise AssertionError(f"cnn {name}: non-finite result")
+        card[name] = out
+        log(f"[cnn] {name:8s} card: final_acc={out.test_acc[-1]:.4f} "
+            f"final_loss={out.test_loss[-1]:.4f} energy="
+            f"{out.energy_per_client.sum():.4f} J uploads="
+            f"{int(out.participation.sum())} wall={wall:.2f} s K1 plain "
+            f"launches={n} (= T) at R {K} x M {CNN_M}")
+    _, warm = timed(torch, run_simulation, params, cnn_loss, cnn_accuracy,
+                    clients, test, runs[0][1], h, cell, cfg)
+    log(f"[cnn] warm random run {warm:.2f} s: {warm / CNN_T * 1e3:.1f} ms a "
+        f"round (5 local steps of 10 clients x 10 images, evals at "
+        f"{card['random'].eval_rounds.tolist()} of 2048 test images)")
+
+    def cpu(ds):
+        return Dataset(ds.x.cpu(), ds.y.cpu(), ds.num_classes)
+
+    c_clients, c_test = [cpu(c) for c in clients], cpu(test)
+    c_params = [{k: v.cpu() for k, v in layer.items()} for layer in params]
+    # the CNN's local SGD is chaotic at this scale: on a host CPU,
+    # tools/cnn_sensitivity.py finds a one-ulp nudge of the initial weights
+    # moving the 12-round model by a relative L2 of 1.3e-3-1.9e-3, planted
+    # faults of 0.1-1 % (lr, one layer's gradient) by 2.1e-3-2.4e-3, and
+    # the flatten in NCHW order by 4.3e-2.  So the 12-round model is held
+    # to CNN_GAP, which catches layout faults only; the arithmetic is held
+    # a step at a time by tests/test_torch_cuda_serve.py, and the nudge is
+    # measured here beside the card's gap
+    nudged = [{k: torch.nextafter(v, torch.full_like(v, float("inf")))
+               for k, v in layer.items()} for layer in c_params]
+    ulp, _ = timed(torch, run_simulation, nudged, cnn_loss, cnn_accuracy,
+                   c_clients, c_test, runs[0][1], h.cpu(), cell, cfg, None,
+                   "cpu")
+    for name, policy in runs:
+        ref, wall = timed(torch, run_simulation, c_params, cnn_loss,
+                          cnn_accuracy, c_clients, c_test, policy, h.cpu(),
+                          cell, cfg, None, "cpu")
+        got = card[name]
+        np.testing.assert_array_equal(got.participation, ref.participation)
+        np.testing.assert_array_equal(got.eval_rounds, ref.eval_rounds)
+        np.testing.assert_array_equal(got.state.last_tx.cpu().numpy(),
+                                      ref.state.last_tx.numpy())
+        for field in ("energy_per_client", "energy_timeline"):
+            np.testing.assert_allclose(getattr(got, field),
+                                       getattr(ref, field), rtol=SLICE_RTOL,
+                                       atol=SLICE_ATOL, err_msg=field)
+        a, b = got.state.global_params.cpu(), ref.state.global_params
+        gap = float((a - b).norm() / b.norm())
+        if not gap < CNN_GAP:
+            raise AssertionError(f"cnn {name}: the card's model is {gap:.3e} "
+                                 f"(relative L2) from the CPU's")
+        line = (f"[cnn] {name:8s} cpu: masks, last_tx, eval rounds equal, "
+                f"energy within rtol {SLICE_RTOL} atol {SLICE_ATOL}; the "
+                f"model {gap:.3e} from the CPU's (relative L2, limit "
+                f"{CNN_GAP}); loss card {got.test_loss.tolist()} cpu "
+                f"{ref.test_loss.tolist()}; acc card {got.test_acc.tolist()} "
+                f"cpu {ref.test_acc.tolist()}; cpu wall={wall:.2f} s")
+        if name == "random":
+            u = ulp.state.global_params
+            line += (f"; the CPU's own run from weights nudged one ulp: "
+                     f"{float((u - b).norm() / b.norm()):.3e}, acc "
+                     f"{ulp.test_acc.tolist()}")
+        log(line)
+    del train, test, clients
+    torch.cuda.empty_cache()
+
+
+def serve_world(K: int, device=None):
+    """bench_serve's world with the paper's MLP: toy_world's cluster draw
+    at dim 784 (K clients x 8 examples), init_mlp's params."""
+    from repro_torch import random as jr
+    from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
+    from repro_torch.serve import toy_world
+    _, store, _, _ = toy_world(K, dim=784, classes=10, n_per=8, seed=0,
+                               device=device)
+    return init_mlp(jr.PRNGKey(4), device=device), store, mlp_loss, \
+        mlp_accuracy
+
+
+def flush_ceiling(torch, K: int, reps: int = 20) -> None:
+    """bench_serve's ``_flush_ceiling``: a full 64-row bucket of pending
+    updates, warm flushes timed (each ends when the card has finished)."""
+    from repro_torch.serve import AggregationServer, ServeConfig
+    params, _, _, _ = serve_world(K)
+    cfg = ServeConfig(num_clients=K, queue_capacity=256, max_batch=64,
+                      min_bucket=8)
+    server = AggregationServer(params, cfg, start=False)
+    d = torch.zeros(server.layout.width, device="cuda")
+
+    def fill():
+        for k in range(cfg.max_batch):
+            server.submit(k, d, server.version)
+
+    fill()
+    server.flush()
+    times = []
+    for _ in range(reps):
+        fill()
+        t0 = time.perf_counter()
+        server.flush()
+        times.append(time.perf_counter() - t0)
+    server.close()
+    best = min(times)
+    log(f"[serve] flush ceiling (K {K}, W {server.layout.width}): warm "
+        f"64-row flush {best * 1e3:.3f} ms (median "
+        f"{statistics.median(times) * 1e3:.3f}), "
+        f"{cfg.max_batch / best:.0f} uploads/s")
+
+
+def client_step_alone(torch, K: int, steps: int = 100) -> None:
+    """One client's upload computation (``make_client_step``: the index
+    draw, the gather, local SGD on a width-1 lane) timed alone on the
+    card, with no server thread running: what a load-generator worker
+    pays per upload before it contends for the interpreter lock."""
+    from repro_torch.fl.state import ParamLayout
+    from repro_torch.serve import make_client_step
+    params, store, loss_fn, _ = serve_world(K)
+    layout = ParamLayout.of(params)
+    step = make_client_step(store, loss_fn, 1, 10, 0, layout=layout)
+    g = layout.flatten(params)
+    for k in range(5):
+        step(g, k, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(steps):
+        step(g, k % K, 1)
+    torch.cuda.synchronize()
+    log(f"[serve] client step alone (L 1, B 10, the MLP): "
+        f"{(time.perf_counter() - t0) / steps * 1e3:.3f} ms an upload on "
+        f"the card, one thread, no control plane running")
+
+
+def serve_session(torch, K: int, uploads: int, workers: int,
+                  respect_probs: bool) -> dict:
+    """bench_serve's ``_session`` on the card: online_policy at rho 0.05
+    on 64 rounds of gains, a warm-up burst of 128 uploads, ``uploads`` on
+    ``workers`` threads, then ``verify_replay``."""
+    from collections import Counter
+
+    from repro_torch import random as jr
+    from repro_torch.core import CellConfig
+    from repro_torch.core.channel import channel_gains, sample_positions
+    from repro_torch.core.selection import ProblemSpec, online_policy
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.serve import (AggregationServer, LoadGenConfig,
+                                   ServeConfig, run_loadgen, verify_replay)
+    params, store, loss_fn, acc_fn = serve_world(K)
+    cell = CellConfig(num_clients=K)
+    pos = sample_positions(jr.PRNGKey(0, device="cuda"), cell)
+    gains = channel_gains(jr.PRNGKey(1, device="cuda"), pos, 64)
+    pol = online_policy(ProblemSpec(cell=cell, rho=0.05, num_rounds=64))
+    cfg = ServeConfig(num_clients=K, queue_capacity=max(256, workers * 8),
+                      max_batch=64, min_bucket=8, flush_interval_s=0.002,
+                      policy_refresh_min_interval_s=2.0)
+    before = k1.subset_launches
+    server = AggregationServer(params, cfg, policy_fn=pol, gains=gains,
+                               cell=cell, start=True)
+    run_loadgen(server, store, loss_fn, LoadGenConfig(
+        uploads=max(cfg.max_batch * 2, 128), workers=workers, seed=100,
+        respect_probs=False, timeout_s=300.0))
+    server.reset_stats()
+    report = run_loadgen(server, store, loss_fn, LoadGenConfig(
+        uploads=uploads, workers=workers, seed=0, rate_sigma=1.0,
+        respect_probs=respect_probs, timeout_s=300.0))
+    server.close(drain=True)
+    flushes = k1.subset_launches - before
+    if flushes != server.version:
+        raise AssertionError(f"{server.version} flushes launched K1's subset "
+                             f"mode {flushes} times")
+    t0 = time.perf_counter()
+    parity = verify_replay(server, store, params, loss_fn, acc_fn)
+    torch.cuda.synchronize()
+    report["replay"] = parity
+    report["replay_s"] = time.perf_counter() - t0
+    report["buckets"] = dict(sorted(Counter(
+        rec.bucket for rec in server.log.records).items()))
+    return report
+
+
+def drive_manual(server, step, uploads: int, seed: int = 1):
+    """tests/test_serve.py's ``_drive``: ``uploads`` client deltas,
+    flushing whenever dedup blocks, then close."""
+    import numpy as np
+    K = server.cfg.num_clients
+    rng = np.random.default_rng(seed)
+    seqs = np.zeros((K,), np.int64)
+    done = 0
+    while done < uploads:
+        k = int(rng.integers(K))
+        version, g = server.pull_row()
+        seq = int(seqs[k])
+        tk = server.submit(k, step(g, k, seq), version, seq=seq,
+                           energy_j=float(k + 1) * 0.25)
+        if tk.admitted:
+            seqs[k] += 1
+            done += 1
+        else:
+            server.flush()
+    server.close()
+
+
+def manual_sessions(torch):
+    """tests/test_serve.py's two manual sessions on the card and the CPU:
+    equal decision logs and ledgers, models within tolerance, replay on
+    the card."""
+    import numpy as np
+
+    from repro_torch.fl import AggregatorConfig, GuardConfig
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.serve import (AggregationServer, ServeConfig,
+                                   make_client_step, toy_world,
+                                   verify_replay)
+    for name, K, uploads, kw in MANUAL:
+        if name != "plain":
+            kw = dict(kw, guards=GuardConfig(quarantine=True, clip_norm=5.0,
+                                             staleness_power=0.5),
+                      aggregator=AggregatorConfig(kind="csmaafl",
+                                                  staleness_fn="poly"))
+        cfg = ServeConfig(num_clients=K, local_iters=1, batch_size=3,
+                          lr=0.05, seed=0, **kw)
+        servers = {}
+        for device in ("cuda", "cpu"):
+            params, store, loss_fn, acc_fn = toy_world(
+                K, dim=8, classes=4, n_per=6, device=device)
+            server = AggregationServer(params, cfg, start=False,
+                                       device=device)
+            step = make_client_step(store, loss_fn, 1, 3, 0, lr=0.05,
+                                    layout=server.layout)
+            before = k1_counts(k1)
+            drive_manual(server, step, uploads)
+            n = np.subtract(k1_counts(k1), before)
+            servers[device] = (server, store, params, loss_fn, acc_fn, n)
+        card, cpu = servers["cuda"][0], servers["cpu"][0]
+        if [r.to_dict() for r in card.log.records] != \
+                [r.to_dict() for r in cpu.log.records]:
+            raise AssertionError(f"manual {name}: the card's decision log "
+                                 "differs from the CPU's")
+        for key in ("last_tx", "tx_count", "energy"):
+            np.testing.assert_array_equal(card.ledger_snapshot()[key],
+                                          cpu.ledger_snapshot()[key])
+        a = card.global_row().cpu().numpy()
+        b = cpu.global_row().numpy()
+        np.testing.assert_allclose(a, b, rtol=SLICE_RTOL, atol=SLICE_ATOL)
+        rep = verify_replay(*servers["cuda"][:5])
+        n = servers["cuda"][5]
+        mode = "weighted" if name != "plain" else "subset"
+        if n[0] != card.version or n[2 if name != "plain" else 1] != n[0]:
+            raise AssertionError(f"manual {name}: {card.version} flushes, K1 "
+                                 f"launches {tuple(n)}")
+        log(f"[serve] manual {name} session (K {K}, {uploads} uploads, "
+            f"{card.version} flushes, K1 {mode} mode): card decision log = "
+            f"CPU's record for record, ledgers equal, model within rtol "
+            f"{SLICE_RTOL} atol {SLICE_ATOL} (max |card - cpu| "
+            f"{float(np.max(np.abs(a - b))):.2e}); verify_replay on the card "
+            f"passed (max |err| {rep['model_max_abs_err']:.2e})")
+
+
+def serve_runs(torch):
+    """(c) the serve front door: the flush ceiling, the throughput and
+    paper load modes, their spans and K1's buckets, then the manual
+    sessions."""
+    from repro_torch.obs.telemetry import get_telemetry
+
+    tel = get_telemetry()
+    tel.reset()
+    K = SERVE["K"]
+    flush_ceiling(torch, K)
+    client_step_alone(torch, K)
+    modes = {}
+    for mode, respect in (("throughput", False), ("paper", True)):
+        modes[mode] = serve_session(torch, K, SERVE["uploads"],
+                                    SERVE["workers"], respect)
+    for mode, rep in modes.items():
+        occ = rep["occupancy"]
+        log(f"[serve] {mode} (K {K}, {SERVE['uploads']} uploads on "
+            f"{SERVE['workers']} workers after 128 warm-up; {SERVE_CUT}): "
+            f"{rep['uploads_per_second']:.1f} uploads/s, {rep['batches']} "
+            f"batches, admission p50 {rep['admit_ms']['p50']:.2f} ms p95 "
+            f"{rep['admit_ms']['p95']:.2f} ms, occupancy mean "
+            f"{occ['mean']:.3f} (mean batch {occ['mean_batch']:.1f}), "
+            f"skipped {rep['skipped_bernoulli']} by p_k, "
+            f"{rep['skipped_busy']} busy, rejected {rep['rejected']}; K1 "
+            f"subset launches by bucket {rep['buckets']}; verify_replay on "
+            f"the card passed ({rep['replay']['n_batches']} batches, "
+            f"{rep['replay']['n_uploads']} uploads, max |err| "
+            f"{rep['replay']['model_max_abs_err']:.2e}, {rep['replay_s']:.2f} "
+            f"s)")
+    for name in ("serve.flush", "serve.policy_refresh", "serve.loadgen"):
+        st = tel.span_stats(name)
+        log(f"[serve] span {name}: " + (
+            "none" if st is None else
+            f"{st['count']} x mean {st['mean_s'] * 1e3:.3f} ms, max "
+            f"{st['max_s'] * 1e3:.3f} ms, total {st['total_s']:.2f} s"))
+    log(f"[serve] counters: " + ", ".join(
+        f"{k}={v}" for k, v in sorted(tel.counters.items())
+        if k.startswith("serve.")))
+    manual_sessions(torch)
+
+
+def serve_and_entry(torch):
+    """Phase 3g: (a)-(c); returns K1's launches (all, subset, weighted)."""
+    import numpy as np
+
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+
+    zero_k1(k1)
+    steps = []
+    for name, fn in (("(a)", entry_points), ("(b)", cnn_runs),
+                     ("(c)", serve_runs)):
+        t0 = time.perf_counter()
+        fn(torch)
+        steps.append(f"{name} {time.perf_counter() - t0:.1f}")
+    counts = np.asarray(k1_counts(k1))
+    log(f"[serve] phase 3g's steps in s: {', '.join(steps)}; K1 launches "
+        f"{int(counts[0])} (plain {int(counts[0] - counts[1] - counts[2])}, "
+        f"subset {int(counts[1])}, weighted {int(counts[2])})")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -3492,8 +4031,11 @@ def main() -> int:
     t0 = time.perf_counter()
     obs = observability(torch, world)
     log(f"[obs] phase 3f in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry = serve_and_entry(torch)
+    log(f"[serve] phase 3g in {time.perf_counter() - t0:.1f} s")
     check_main_shapes(torch, checked)
-    sparse = sparse + faulty + data + obs
+    sparse = sparse + faulty + data + obs + entry
     k1_modes = {"plain": launches + panel - panel_weighted
                 + int(sparse[0] - sparse[1] - sparse[2]),
                 "subset": int(sparse[1]),
@@ -3524,9 +4066,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/fl_aggregate.py:43",
         "launches": launches,
         "launches_by_mode": k1_modes,
+        "phase_3g_by_mode": {
+            "plain": int(entry[0] - entry[1] - entry[2]),
+            "subset": int(entry[1]), "weighted": int(entry[2])},
         "nonfinite_rows": poison,
         "max_abs_err": max_err,
-        **timing[(K, MAIN_M, "float32")],
+        **timing[("plain", K, MAIN_M, "float32")],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -1,10 +1,13 @@
 """Param trees between the JAX package and the port, through numpy.
 
-``params_from_jax`` takes the JAX MLP's param list as numpy arrays (for
-example ``jax.tree_util.tree_map(np.asarray, params)``) and returns the
-port's params; ``params_to_numpy`` goes back.  Both keep JAX's layout
-(``{"w": [n_in, n_out], "b": [n_out]}`` per layer), so the two packages can
-train from the same weights.
+``params_from_jax`` takes the JAX MLP's param list or CNN tree as numpy
+arrays (for example ``jax.tree_util.tree_map(np.asarray, params)``) and
+returns the port's params; ``params_to_numpy`` goes back.  Both keep JAX's
+leaf shapes (``{"w": [n_in, n_out], "b": [n_out]}`` per dense layer, HWIO
+conv weights), so the two packages can train from the same weights.  The
+CNN's ``{"convs": [...], "fc1", "fc2"}`` tree becomes the port's list
+``[*convs, fc1, fc2]``, which flattens in the same order, and a list whose
+first layer has a 4-D weight goes back to that tree.
 
 ``transformer_from_jax`` does the same for the decoder stack: it takes JAX's
 ``init_params`` tree (``embed``, ``blocks``, ``final_norm``, ``unembed``)
@@ -22,18 +25,24 @@ from . import resolve_device
 
 
 def params_from_jax(tree, device=None):
-    """A list of ``{name: array}`` layers → the same of float32 tensors on
-    ``device`` (``None`` means the card)."""
+    """A list of ``{name: array}`` layers, or JAX's CNN tree, → a list of
+    layers of float32 tensors on ``device`` (``None`` means the card)."""
     device = resolve_device(device)
+    if isinstance(tree, dict):
+        tree = [*tree["convs"], tree["fc1"], tree["fc2"]]
     return [{name: torch.tensor(np.asarray(a), dtype=torch.float32,
                                 device=device)
              for name, a in layer.items()} for layer in tree]
 
 
 def params_to_numpy(params):
-    """The port's params → a list of ``{name: np.ndarray}`` layers."""
-    return [{name: t.detach().cpu().numpy() for name, t in layer.items()}
-            for layer in params]
+    """The port's params → a list of ``{name: np.ndarray}`` layers, or
+    JAX's CNN tree when the first layer is a convolution."""
+    layers = [{name: t.detach().cpu().numpy() for name, t in layer.items()}
+              for layer in params]
+    if layers[0]["w"].ndim == 4:
+        return {"convs": layers[:-2], "fc1": layers[-2], "fc2": layers[-1]}
+    return layers
 
 
 @torch.no_grad()

@@ -15,10 +15,10 @@ from .device import (DATA_STREAM, DEFAULT_BUDGET_BYTES,
                      shard_store, stack_rounds_reference, store_bytes)
 from .noniid import heterogeneity, shard_noniid
 from .pipeline import BatchIterator, client_batches
-from .synthetic import Dataset, make_mnist_like
+from .synthetic import Dataset, make_cifar_like, make_mnist_like
 
-__all__ = ["Dataset", "make_mnist_like", "shard_noniid", "heterogeneity",
-           "BatchIterator", "client_batches", "DATA_STREAM",
+__all__ = ["Dataset", "make_mnist_like", "make_cifar_like", "shard_noniid",
+           "heterogeneity", "BatchIterator", "client_batches", "DATA_STREAM",
            "DeviceDataStore", "StreamingSampler", "choose_data_path",
            "device_memory_budget", "DEFAULT_BUDGET_BYTES",
            "STORE_BUDGET_FRACTION", "data_stream_key",

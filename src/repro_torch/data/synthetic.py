@@ -1,10 +1,11 @@
 """Deterministic synthetic datasets (counterpart of ``repro.data.synthetic``).
 
-The container is offline, so MNIST cannot be downloaded: ``make_mnist_like``
-builds a procedural stand-in with the same label structure (784-dim inputs,
-10 classes, 60,000/10,000 examples by default) from class prototypes,
-per-class low-rank manifolds and noise, all drawn with the port's threefry
-(:mod:`repro_torch.random`).  Labels are bit-identical to the JAX
+The container is offline, so MNIST and CIFAR-10 cannot be downloaded:
+``make_mnist_like`` builds a procedural stand-in with the same label
+structure (784-dim inputs, 10 classes, 60,000/10,000 examples by default)
+and ``make_cifar_like`` one of 32×32×3 NHWC inputs (50,000/10,000), both
+from class prototypes, per-class low-rank manifolds and noise, all drawn
+with the port's threefry (:mod:`repro_torch.random`).  Labels are bit-identical to the JAX
 generator's; the inputs agree to float32 rounding (``normal`` goes through
 ``erfinv``, which differs by a few ulps between the frameworks).
 """
@@ -33,7 +34,8 @@ def _cluster_classification(key, n, dim, num_classes, noise, device):
     y = jr.randint(k3, (n,), 0, num_classes, device=device)
     coeff = jr.normal(k4, (n, rank), device=device)
     # Σ_r coeff[n, r]·manifolds[y_n, r, :], one product per class: the
-    # gathered [n, rank, dim] operand would be ~11 GB at full size
+    # gathered [n, rank, dim] operand would be ~11 GB at MNIST's full size
+    # and ~141 GB at CIFAR's
     x = protos[y]
     for c in range(num_classes):
         idx = torch.nonzero(y == c).squeeze(1)
@@ -49,5 +51,18 @@ def make_mnist_like(key: torch.Tensor, n_train: int = 60_000,
     x, y = _cluster_classification(key, n_train + n_test, dim, num_classes,
                                    noise, resolve_device(device))
     x = torch.tanh(x)   # bounded like normalized pixels
+    return (Dataset(x[:n_train], y[:n_train], num_classes),
+            Dataset(x[n_train:], y[n_train:], num_classes))
+
+
+def make_cifar_like(key: torch.Tensor, n_train: int = 50_000,
+                    n_test: int = 10_000, noise: float = 1.1,
+                    device=None) -> tuple[Dataset, Dataset]:
+    """``(train, test)`` of ``[N, 32, 32, 3]`` (NHWC) inputs on ``device``
+    (``None`` means the card)."""
+    dim, num_classes = 32 * 32 * 3, 10
+    x, y = _cluster_classification(key, n_train + n_test, dim, num_classes,
+                                   noise, resolve_device(device))
+    x = torch.tanh(x).reshape(-1, 32, 32, 3)
     return (Dataset(x[:n_train], y[:n_train], num_classes),
             Dataset(x[n_train:], y[n_train:], num_classes))

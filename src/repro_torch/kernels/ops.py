@@ -15,6 +15,7 @@ modes of ``repro.kernels.ops`` for eq. (3) all launch the one K1 kernel
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import ref
@@ -47,10 +48,15 @@ def fl_aggregate_subset(global_p, deltas, valid, num_clients):
     if not _on_card(global_p):
         return ref.fl_aggregate_subset_ref(global_p, deltas, valid,
                                            num_clients)
-    k = torch.as_tensor(num_clients, dtype=torch.float32,
-                        device=valid.device)
-    return fl_aggregate_cuda(global_p, deltas, valid.to(torch.float32) / k,
-                             1.0, subset=True)
+    v = valid.to(torch.float32)
+    if isinstance(num_clients, torch.Tensor):
+        w = v / num_clients.to(device=v.device, dtype=torch.float32)
+    else:
+        # the float32 quotient 1/K as a Python float: for validity lanes
+        # of 0 and 1 the weights are v / K's bits, with no host-to-device
+        # copy of K (a pageable copy waits for the stream)
+        w = v * float(np.float32(1.0) / np.float32(num_clients))
+    return fl_aggregate_cuda(global_p, deltas, w, 1.0, subset=True)
 
 
 def fl_aggregate_guarded(global_p, deltas, weights):

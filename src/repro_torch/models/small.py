@@ -1,19 +1,33 @@
-"""The paper's MNIST classifier (§V-A), counterpart of
-``repro.models.small``: one hidden layer of 200 units, 784·200+200+200·10+10
-= 159,010 float32 parameters (the JAX docstring's 199,210 is a slip; the
-cell's model size S = 6.37e6 bits is the paper's figure and is kept).
+"""The paper's small models (§V-A), counterpart of ``repro.models.small``.
 
-Params are a list of ``{"w": [n_in, n_out], "b": [n_out]}`` layers — JAX's
-layout.  Every function also takes params stacked over K clients (a leading
-axis on every leaf, inputs ``[K, B, ...]``): the products are then batched
-matrix products, one per client, and the loss and accuracy come back per
-client (``[K]``).  The gradient of the sum of those per-client losses with
-respect to the stacked params is each client's own gradient, exactly what
+* ``mlp``: the MNIST classifier, one hidden layer of 200 units,
+  784·200+200+200·10+10 = 159,010 float32 parameters (the JAX docstring's
+  199,210 is a slip; the cell's model size S = 6.37e6 bits is the paper's
+  figure and is kept).  Params are a list of ``{"w": [n_in, n_out], "b":
+  [n_out]}`` layers — JAX's layout.
+* ``cnn``: the AlexNet stand-in for the CIFAR-like data: 3×3 "SAME"
+  convolutions of widths (32, 64, 128), each with ReLU and 2×2 max pooling,
+  then fc 256 and 10 logits; 620,362 parameters.  Params are the list
+  ``[conv_0, …, conv_{n-1}, fc1, fc2]`` of ``{"w", "b"}`` layers, which
+  flattens in the order of JAX's ``{"convs": [...], "fc1", "fc2"}`` tree;
+  the conv weights keep JAX's HWIO shape ``[3, 3, c_in, c_out]`` and the
+  inputs its NHWC layout (:mod:`repro_torch.convert` carries the tree).
+
+Every function also takes params stacked over R clients (a leading axis on
+every leaf, inputs ``[R, B, ...]``) and then returns per-client losses and
+accuracies (``[R]``): the MLP's products are batched matrix products, the
+CNN's convolutions one grouped convolution with the clients folded into the
+channels.  The gradient of the sum of those per-client losses with respect
+to the stacked params is each client's own gradient, exactly what
 ``vmap(grad(loss))`` gives in JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+import torch.nn.functional as F
 
 from .. import random as jr
 from .. import resolve_device
@@ -56,4 +70,107 @@ def mlp_loss(params, x, y):
 
 def mlp_accuracy(params, x, y):
     return (torch.argmax(mlp_logits(params, x), -1) == y).to(
+        torch.float32).mean(-1)
+
+
+# ---------------------------------------------------------------------------
+# CNN (AlexNet stand-in for CIFAR-like data)
+# ---------------------------------------------------------------------------
+
+def _conv_init(key, k, c_in, c_out, device):
+    scale = torch.sqrt(torch.tensor(2.0 / (k * k * c_in), dtype=torch.float32))
+    return {"w": jr.normal(key, (k, k, c_in, c_out), device=device)
+            * scale.item(),
+            "b": torch.zeros(c_out, dtype=torch.float32, device=device)}
+
+
+def init_cnn(key: torch.Tensor, widths=(32, 64, 128), fc=256, num_classes=10,
+             device=None):
+    """JAX's ``init_cnn`` draws as the list ``[conv_0, …, fc1, fc2]`` on
+    ``device`` (``None``: the card)."""
+    device = resolve_device(device)
+    keys = jr.split(key, len(widths) + 2)
+    params, c_in = [], 3
+    for i, w in enumerate(widths):
+        params.append(_conv_init(keys[i], 3, c_in, w, device))
+        c_in = w
+    spatial = 32 // (2 ** len(widths))
+    params.append(_dense_init(keys[-2], spatial * spatial * c_in, fc, device))
+    params.append(_dense_init(keys[-1], fc, num_classes, device))
+    return params
+
+
+# cuDNN convolves float32 in TF32 unless torch.backends.cudnn.allow_tf32 is
+# off, and that flag is process-global: each convolution (forward and
+# backward) clears it under this lock and puts it back, whoever calls.
+_CONV_FLAG_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    with _CONV_FLAG_LOCK:
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+
+class _GroupedConv(torch.autograd.Function):
+    """3×3 stride-1 ``padding=1`` (JAX's "SAME") convolution of ``[B, G·Ci,
+    H, W]`` by ``[G·Co, Ci, 3, 3]`` in ``G`` groups, forward and backward
+    in full float32."""
+
+    @staticmethod
+    def forward(ctx, x, w, groups: int):
+        ctx.save_for_backward(x, w)
+        ctx.groups = groups
+        with _full_fp32():
+            return F.conv2d(x, w, padding=1, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        with _full_fp32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                ctx.groups, [ctx.needs_input_grad[0],
+                             ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
+def cnn_logits(params, x: torch.Tensor) -> torch.Tensor:
+    """Logits ``[B, classes]`` of NHWC inputs ``[B, 32, 32, 3]``, or
+    ``[R, B, classes]`` of ``[R, B, 32, 32, 3]`` under params stacked over
+    R clients."""
+    stacked = params[0]["w"].dim() == 5
+    if not stacked:
+        params = [{k: v.unsqueeze(0) for k, v in layer.items()}
+                  for layer in params]
+        x = x.unsqueeze(0)
+    R, B = x.shape[:2]
+    # NHWC per client -> NCHW with the clients folded into the channels
+    h = x.permute(1, 0, 4, 2, 3).reshape(B, R * x.shape[-1], *x.shape[2:4])
+    for conv in params[:-2]:
+        w = conv["w"]                      # [R, 3, 3, c_in, c_out] (HWIO)
+        c_in, c_out = w.shape[3], w.shape[4]
+        w = w.permute(0, 4, 3, 1, 2).reshape(R * c_out, c_in, 3, 3)
+        h = _GroupedConv.apply(h, w, R) + conv["b"].reshape(-1, 1, 1)
+        h = F.max_pool2d(torch.relu(h), 2)
+    # back to NHWC before flattening, the row order of fc1's weights
+    c, hh, ww = h.shape[1] // R, h.shape[2], h.shape[3]
+    h = h.reshape(B, R, c, hh, ww).permute(1, 0, 3, 4, 2).reshape(R, B, -1)
+    fc1, fc2 = params[-2], params[-1]
+    h = torch.relu(h @ fc1["w"] + fc1["b"].unsqueeze(-2))
+    out = h @ fc2["w"] + fc2["b"].unsqueeze(-2)
+    return out if stacked else out[0]
+
+
+def cnn_loss(params, x, y):
+    return cross_entropy(cnn_logits(params, x), y)
+
+
+def cnn_accuracy(params, x, y):
+    return (torch.argmax(cnn_logits(params, x), -1) == y).to(
         torch.float32).mean(-1)

@@ -1,4 +1,5 @@
-"""The port stands alone: no module of src/repro_torch and not chip_smoke.py
+"""The port stands alone: no module of src/repro_torch, no example of the
+port (examples/*_torch.py), no script of tools/ and not chip_smoke.py
 imports JAX or the JAX package (``repro``)."""
 import ast
 from pathlib import Path
@@ -6,8 +7,9 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (REPO / "examples").glob("*_torch.py")) + sorted(
+    (REPO / "tools").glob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 def forbidden(module: str) -> bool:
@@ -35,6 +37,9 @@ def test_the_check_sees_the_whole_port():
             "generate.py", "telemetry.py", "llama3_2_1b.py",
             "selective_scan.py", "mamba.py", "moe.py", "fractional.py",
             "convergence.py", "faults.py", "algorithm1.py",
-            "selection.py", "sparse.py", "device.py", "schemes.py"} <= names
+            "selection.py", "sparse.py", "device.py", "schemes.py",
+            "server.py", "replay.py", "train.py", "batcher.py", "loadgen.py",
+            "quickstart_torch.py", "mnist_fl_schemes_torch.py",
+            "cnn_sensitivity.py"} <= names
     assert forbidden("jax.numpy") and forbidden("repro.fl")
     assert not forbidden("repro_torch.fl")
