@@ -82,7 +82,8 @@ Phases, each reporting on its own lines:
    world, nothing cut (K 16, 8,000/1,000 examples, d 5, RandomScheme(0.15),
    B 10, eval_batch 512, eval_every T/4, stream_chunk max(T/8, 16)) on the
    prestack, device and stream paths at T 50 (L 5) and T 500 (L 1), cold
-   then warm, and at T 2000 (L 1) once, on the device and stream paths
+   then warm, and at T 1000 (L 1; cut from 2000 for phase 9's time) once,
+   on the device and stream paths
    only (the prestack run is cut for time): prep, cold and warm seconds and the
    device-resident data bytes (``torch.cuda.memory_allocated`` around the
    data; the device store's flat across T, the stream's two chunks); stream
@@ -146,7 +147,8 @@ Phases, each reporting on its own lines:
    policy at ρ 0.05 on 64 rounds of gains; cut from its full K 4,000,
    2,000 uploads and 8 workers, which took 312.4 s): warm 64-row flushes
    timed, a client step timed alone, then the ``throughput`` and
-   ``paper`` load modes, 500 uploads on 4 workers after a warm-up burst
+   ``paper`` load modes, 200 uploads (cut from 500 for phase 9's time)
+   on 4 workers after a warm-up burst
    of 128, uploads/s, admission p50/p95,
    occupancy, the ``serve.flush`` and ``serve.policy_refresh`` spans, K1's
    subset launches by bucket and ``verify_replay`` on each session; then
@@ -199,7 +201,25 @@ Phases, each reporting on its own lines:
    tests/test_models.py's tolerances;
 8. card against CPU — reduced Jamba (the whole published plan, MoE with 4
    experts) in float32: greedy tokens on the card equal the CPU's, logits
-   within rtol 1e-4, atol 5e-5.
+   within rtol 1e-4, atol 5e-5;
+9. training — (a) ``xlstm-125m`` at full width and depth (12 layers
+   mLSTM/sLSTM, d 768, vocab 50,304, 116,260,608 params) in bf16: generation
+   through ``launch.generate.generate`` (batch 4, prompt 1024, 32 new
+   tokens; prefill, ms a token, peak memory), one mLSTM and one sLSTM layer
+   alone, then 3 FL rounds through ``launch.train --arch xlstm-125m`` (K 4,
+   B 2, S 64; K1 twice a round, the bf16 and float32 rows); (b)
+   ``llama3.2-1b`` at full width and depth in bf16 (1,235,814,400 params)
+   through ``launch.train --arch llama3.2-1b`` (K 4, B 2, S 64, 3 rounds,
+   replica mode): K2 in the forward of every local step (192 launches), K1
+   once a round at R 4 × M 1,235,814,400 (R·M past 2³²), held against its
+   plain version on the round's own inputs (column slices) and timed beside
+   ``torch.addmv`` and its bound; (c) every reduced configuration in
+   float32, the card against the CPU from the same state and batch: loss and
+   gradients, one replica round (2 local steps) and one masked-dp round,
+   with K2 and K3 under their autograd functions; then those functions'
+   gradients against the plain versions' autograd on the same inputs and
+   the recompute backward's cost (K2 at B 2 × S 64 and 1024, K3 at S 16 and
+   64).
 
 Float32 products run in full float32 on the card: TF32 is switched off for
 both cuBLAS matmuls and cuDNN, so card-against-CPU differences are summation
@@ -212,7 +232,9 @@ for K1, also counted by mode: plain, subset and weighted, and phase 3g's
 alone by mode, with the
 non-finite rows phase 3d's faulty runs reduced; the generate
 run of phase 5a for K2, that of phase 7a for K3) and its times at the main
-path's shape.
+path's shape, and under ``phase_9`` its launches on the training paths
+(K1 also its times at the Llama round's shape; K2 and K3 the recompute
+backward's).
 """
 from __future__ import annotations
 
@@ -220,6 +242,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -272,9 +295,10 @@ def environment(torch):
     log(f"[env] torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    from repro_torch.kernels import (fl_aggregate, flash_attention,
-                                     selective_scan)
-    modules = (fl_aggregate, flash_attention, selective_scan)
+    import importlib
+    modules = tuple(importlib.import_module(f"repro_torch.kernels.{name}")
+                    for name in ("fl_aggregate", "flash_attention",
+                                 "selective_scan"))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         libs = list(pool.map(lambda module: module.library(), modules))
@@ -482,7 +506,8 @@ TIMED_SHAPES = (
 
 
 def time_kernel(torch, bandwidth):
-    from repro_torch.kernels import fl_aggregate as k1
+    import importlib
+    k1 = importlib.import_module("repro_torch.kernels.fl_aggregate")
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(256 * 2**20 // 4, device="cuda")   # 256 MB > L2
@@ -1651,11 +1676,12 @@ def faults_and_matrices(torch, world):
 # MNIST-like examples, d 5, RandomScheme(0.15), B 10, eval_batch 512,
 # eval_every T/4, stream_chunk max(T/8, 16); L 5 at T 50, L 1 above
 DATA_K, DATA_TRAIN, DATA_P = 16, 8_000, 0.15
-DATA_HORIZONS = ((50, 5, 2), (500, 1, 2), (2000, 1, 1))   # T, L, runs
+DATA_HORIZONS = ((50, 5, 2), (500, 1, 2), (1000, 1, 1))   # T, L, runs
 DATA_PATHS = ("prestack", "device", "stream")
-# the one run dropped to keep phase 3e within its 120 s: T 2000's prestack
-# stack (1 GB on the host, then on the card) and run
-DATA_CUT = {(2000, "prestack")}
+# the one run dropped to keep phase 3e within its 120 s: the longest
+# horizon's prestack stack (0.5 GB on the host at T 1000, then on the card)
+# and run; that horizon is cut from T 2000 to 1000 to make room for phase 9
+DATA_CUT = {(1000, "prestack")}
 # Adam's model after ADAM_ROUNDS quickstart rounds from the initial models
 # of ADAM_SEEDS: the card-CPU relative L2 gap limit, between one-ulp nudges
 # of the initial weights on the CPU and planted faults on the card
@@ -1702,7 +1728,7 @@ def same_bits(np, torch, got, ref, what):
 
 
 def data_path_runs(torch, w):
-    """(a) bench_data.py's three paths at T 50, 500 and 2000 on the card,
+    """(a) bench_data.py's three paths at T 50, 500 and 1000 on the card,
     less ``DATA_CUT``; returns the T 50 device result and its runner's
     config."""
     import resource
@@ -2709,10 +2735,11 @@ CNN_GAP = 1e-2      # the 12-round model, card against CPU (cnn_runs)
 # Cut from its full setting (K 4,000, 2,000 uploads, 8 workers), which
 # took 312.4 s on an H100 80GB HBM3 at 700 W, past phase 3g's 150 s:
 # each (P1') re-solve of the control plane held the interpreter lock
-# against the submitters for 27.5 s on average
-SERVE = dict(K=1000, uploads=500, workers=4)
-SERVE_CUT = ("bench_serve's --quick setting: its full K 4,000, 2,000 "
-             "uploads, 8 workers took 312.4 s")
+# against the submitters for 27.5 s on average.  Cut again to 200 of the
+# --quick setting's 500 uploads, to make room for phase 9 (PR 22)
+SERVE = dict(K=1000, uploads=200, workers=4)
+SERVE_CUT = ("bench_serve's --quick setting with 200 uploads of its 500: "
+             "its full K 4,000, 2,000 uploads, 8 workers took 312.4 s")
 # tests/test_serve.py's manual sessions (:136-160): plain, and guards with
 # the csmaafl aggregator, on its toy world (dim 8, 4 classes, 6 examples)
 MANUAL = (("plain", 16, 40, dict(max_batch=8, min_bucket=2)),
@@ -3997,6 +4024,532 @@ def jamba_card_vs_cpu(torch):
         f"launches={n_mamba} in the prefill; cpu {wall:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-125m"
+LLAMA = "llama3.2-1b"
+# launch.train --arch at K 4 clients, B 2 sequences of S 64 tokens each, 3
+# rounds (the CLI's defaults but the rounds): replica mode, one local step
+TRAIN_ARGV = ["--rounds", "3", "--clients", "4", "--per-client-batch", "2",
+              "--seq-len", "64"]
+TRAIN_ROUNDS, TRAIN_K = 3, 4
+# reduced float32 configurations, card against CPU (TF32 off): the sums of
+# a few layers' products in another order (tests/test_torch_transformer.py
+# holds reduced Jamba's logits at atol 5e-5 for the same reason)
+TRAIN_CPU_TOL = dict(rtol=1e-4, atol=5e-5)
+COLUMN_CHUNK = 1 << 27   # K1's plain version a slice of columns at a time
+K1_ULPS = 1   # K1 against its plain version in bf16: inv_k against / K
+
+
+def kernel_counters():
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    return fl_aggregate_cuda, flash_attention_cuda, selective_scan_cuda
+
+
+def zero_counts() -> None:
+    k1, k2, k3 = kernel_counters()
+    k1.launches = k1.subset_launches = k1.guarded_launches = 0
+    k2.launches = k3.launches = 0
+
+
+def read_counts() -> tuple:
+    return tuple(k.launches for k in kernel_counters())
+
+
+@contextlib.contextmanager
+def k1_inputs_seen():
+    """Keep the inputs and output of the last eq.-3 call of the round
+    (``ops.fl_aggregate``, K1's plain mode), to hold K1 at that shape
+    after the run."""
+    from repro_torch.kernels import ops
+    seen, plain_mode = {}, ops.fl_aggregate
+
+    def keep(g, d, mask):
+        out = plain_mode(g, d, mask)
+        seen.update(g=g, d=d, mask=mask, out=out)
+        return out
+
+    ops.fl_aggregate = keep
+    try:
+        yield seen
+    finally:
+        ops.fl_aggregate = plain_mode
+
+
+def train_cli(torch, arch: str):
+    """``launch.train.main(["--arch", arch, ...])`` on the card, with every
+    kernel count zeroed just before and read just after; returns the final
+    state, the rounds' metrics, the wall time, the counts (K1, K2, K3) and
+    the peak memory in GB."""
+    from repro_torch.launch import train
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, rounds = train.main(["--arch", arch] + TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(rounds) != TRAIN_ROUNDS or not all(
+            math.isfinite(r["loss"]) and 0 <= r["participants"] <= TRAIN_K
+            for r in rounds):
+        raise AssertionError(f"{arch}: malformed rounds {rounds}")
+    return state, rounds, wall, counts, peak
+
+
+def local_step_ms(torch, cfg, state) -> float:
+    """One client's forward and backward (``loss_and_grads``) on its row at
+    the rounds' batch shape, B 2 × S 64: the median of 3 after a warm-up,
+    synchronized host time."""
+    from repro_torch.fl.distributed import loss_and_grads
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    rows = tuple(c[0] for c in state.client_params)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_and_grads(cfg, rows, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def layer_times(torch, model, cfg):
+    """(a): one mLSTM and one sLSTM layer of the generation's model alone,
+    forward at batch 4 × 1024 tokens in bf16 (CUDA events, 3 calls)."""
+    from repro_torch.models import xlstm
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = (torch.randn(4, 1024, cfg.d_model, generator=gen, device="cuda")
+         * 0.5).to(torch.bfloat16)
+    out = {}
+    with torch.inference_mode():
+        for i, fn in ((0, xlstm.mlstm_forward), (1, xlstm.slstm_forward)):
+            p = model.layers[i].mixer
+            fn(p, cfg, x)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                y = fn(p, cfg, x)
+            end.record()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"layer {i}: non-finite output")
+            out[model.layers[i].mixer_kind] = start.elapsed_time(end) / 3
+    return out
+
+
+def xlstm_full_width(torch):
+    """(a) xLSTM-125M, nothing cut: generation through
+    ``launch.generate.generate``, its mixers alone, then 3 FL rounds through
+    ``launch.train``; returns K1's launches in the rounds."""
+    from repro_torch.configs import get
+    from repro_torch.fl.distributed import param_count, row_layout
+    from repro_torch.launch import generate
+    from repro_torch.obs.telemetry import get_telemetry
+
+    cfg = get(XLSTM)
+    layout = row_layout(cfg)
+    get_telemetry().reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    out = generate.generate(cfg, batch=4, prompt_len=1024, new_tokens=32,
+                            seed=0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = out["tokens"]
+    if tokens.shape != (4, 32) or not bool(((tokens >= 0)
+                                            & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"malformed tokens {tuple(tokens.shape)}")
+    init = get_telemetry().span_stats("serve.init")["total_s"]
+    log(f"[xlstm] {XLSTM} at full width and depth ({cfg.n_layers} layers "
+        f"mLSTM/sLSTM, d {cfg.d_model}, {cfg.n_heads} heads, vocab "
+        f"{cfg.vocab}; {param_count(cfg):,} params by param_count, rows "
+        f"{dict(zip((str(d) for d in layout.dtypes), layout.sizes))}), "
+        f"bf16, batch 4, prompt 1024, 32 new tokens: init {init:.2f} s, "
+        f"prefill {out['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{out['decode_s_per_token'] * 1e3:.2f} ms/token, peak memory "
+        f"{peak:.2f} GB; kernel launches (K1, K2, K3) = {counts} (no xLSTM "
+        f"kernel, as in JAX)")
+    ms = layer_times(torch, out.pop("model"), cfg)
+    log(f"[xlstm] one layer alone at B 4 x S 1024 bf16: mLSTM (chunks of "
+        f"256) {ms['mlstm']:.2f} ms, sLSTM (1,024 eager steps) "
+        f"{ms['slstm']:.2f} ms")
+    state, rounds, wall, counts, peak = train_cli(torch, XLSTM)
+    k1 = counts[0]
+    if k1 != TRAIN_ROUNDS * len(layout.dtypes) or counts[1:] != (0, 0):
+        raise AssertionError(f"xLSTM rounds launched (K1, K2, K3) {counts}")
+    step = local_step_ms(torch, cfg, state)
+    log(f"[xlstm] launch.train --arch {XLSTM} {' '.join(TRAIN_ARGV)}: "
+        f"{wall:.2f} s ({wall / TRAIN_ROUNDS:.2f} s a round), peak memory "
+        f"{peak:.2f} GB, losses {[round(r['loss'], 4) for r in rounds]}, "
+        f"participants {[r['participants'] for r in rounds]}; K1 "
+        f"launches={k1} (a round's bf16 and float32 rows); one client's "
+        f"local step alone {step:.1f} ms")
+    return k1
+
+
+def llama_training(torch, bandwidth):
+    """(b) Llama-3.2-1B FL rounds at full width through ``launch.train``,
+    then K1 at the round's shape (R 4 × M 1,235,814,400, bf16) held against
+    its plain version to one bf16 ulp on the round's own inputs and timed,
+    and held so again on seeded weights and deltas of order 1; returns the
+    launch counts and K1's row of the kernels line."""
+    from repro_torch.configs import get
+    from repro_torch.fl.distributed import mode_for, param_count
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+
+    cfg = get(LLAMA)
+    P = param_count(cfg)
+    mode = mode_for(cfg)
+    if mode != "replica":
+        raise AssertionError(f"mode_for({LLAMA}) = {mode}")
+    with k1_inputs_seen() as seen:
+        state, rounds, wall, counts, peak = train_cli(torch, LLAMA)
+    k1, k2, k3 = counts
+    want = (TRAIN_ROUNDS, TRAIN_ROUNDS * TRAIN_K * cfg.n_layers, 0)
+    if counts != want:
+        raise AssertionError(f"Llama rounds launched (K1, K2, K3) {counts}, "
+                             f"expected {want}")
+    log(f"[train] launch.train --arch {LLAMA} {' '.join(TRAIN_ARGV)} (full "
+        f"width and depth, bf16, {P:,} params by param_count, mode_for = "
+        f"{mode}): {wall:.2f} s ({wall / TRAIN_ROUNDS:.2f} s a round), peak "
+        f"memory {peak:.2f} GB, losses "
+        f"{[round(r['loss'], 4) for r in rounds]}, participants "
+        f"{[r['participants'] for r in rounds]}, energy_j "
+        f"{[round(r['energy_j'], 3) for r in rounds]}; K1 launches={k1} "
+        f"(= rounds), K2 launches={k2} (= rounds x clients x layers)")
+    log(f"[train] one client's local step alone (forward + backward, 16 K2 "
+        f"launches and their recompute backward): "
+        f"{local_step_ms(torch, cfg, state):.1f} ms")
+    del state
+    g, d, mask, out = seen["g"], seen["d"], seen["mask"], seen["out"]
+    seen.clear()
+    torch.cuda.empty_cache()
+    R, M = d.shape
+    if (R, M, d.dtype) != (TRAIN_K, P, torch.bfloat16):
+        raise AssertionError(f"K1 ran at R {R} x M {M} {d.dtype}")
+    w = mask.float().contiguous()
+    again = fl_aggregate_cuda(g, d, w, 1.0 / R)
+    if not torch.equal(again, out):
+        raise AssertionError("two K1 launches at the round's shape differ")
+    del again
+    worst, ulps, n_diff = held_in_slices(torch, out, g, d, mask, "the round")
+    log(f"[train] K1 at the round's shape, plain mode R {R} x M {M:,} bf16 "
+        f"(R·M = {R * M:,} > 2^32), mask {w.tolist()}: two launches "
+        f"bit-equal; against its plain version (in column slices of "
+        f"{COLUMN_CHUNK:,}) max |kernel - plain| {worst:.3e}, {n_diff:,} "
+        f"elements differ, by at most {ulps} bf16 ulp (limit {K1_ULPS})")
+    flush = torch.empty(256 * 2**20 // 4, device="cuda")
+    lw = (mask / R).to(d.dtype)
+    lib = torch.addmv(g, d.T, lw)
+    torch.testing.assert_close(lib.float(), out.float(), **TOL["bfloat16"])
+    del lib
+    t_kernel = time_ms(torch, lambda: fl_aggregate_cuda(g, d, w, 1.0 / R),
+                       flush, iters=10, warmup=2)
+    t_lib = time_ms(torch, lambda: torch.addmv(g, d.T, lw), flush, iters=10,
+                    warmup=2)
+    t_plain = time_ms(torch, lambda: ref.fl_aggregate_ref(g, d, mask), flush,
+                      iters=3, warmup=1)
+    nbytes = (R * M + 2 * M) * d.element_size() + R * 4
+    t_bytes = nbytes / bandwidth * 1e3
+    t_ops = 2 * R * M / FP32_PEAK * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"[kernel-time] plain R={R} M={M} bfloat16 (the Llama round; bound "
+        f"{bound:.4f} ms = {nbytes / 1e9:.2f} GB): kernel {t_kernel:.4f} ms "
+        f"({100 * bound / t_kernel:.1f}% of the bound), torch.addmv "
+        f"{t_lib:.4f} ms, plain {t_plain:.4f} ms (L2 dirty)")
+    del out, flush
+    # The round's deltas lie far below one bf16 ulp of the weights they are
+    # added to, so a kernel that read the wrong element past 2^32 or dropped
+    # a row could still round to the same output.  Refill the same buffers
+    # with deltas and weights of order 1 that differ in every element, and
+    # hold K1 at the same shape, every row counted, to one bf16 ulp.
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    g.normal_(generator=gen)
+    for r in range(R):
+        d[r].normal_(generator=gen)
+    ones = torch.ones(R, device="cuda")
+    out = fl_aggregate_cuda(g, d, ones, 1.0 / R)
+    worst_o1, ulps_o1, n_diff_o1 = held_in_slices(torch, out, g, d, ones,
+                                                  "deltas of order 1")
+    log(f"[train] K1 at R {R} x M {M:,} bf16 on seeded N(0, 1) weights and "
+        f"deltas, every row weighted 1: max |kernel - plain| "
+        f"{worst_o1:.3e}, {n_diff_o1:,} elements differ, by at most "
+        f"{ulps_o1} bf16 ulp (limit {K1_ULPS})")
+    del g, d, out
+    torch.cuda.empty_cache()
+    return counts, dict(shape=f"plain R {R} x M {M} bfloat16",
+                        round_launches=k1,
+                        max_abs_err=max(worst, worst_o1),
+                        max_ulps=max(ulps, ulps_o1),
+                        elements_differ=n_diff + n_diff_o1,
+                        ms=t_kernel, plain_ms=t_plain, bound_ms=bound,
+                        bound_by="bytes" if t_bytes >= t_ops
+                        else "operations", library_ms=t_lib)
+
+
+def bf16_ulps(torch, a, b) -> int:
+    """The largest distance between two bf16 tensors in bf16 ulps, counted
+    on the ordered line of their bit patterns so that it holds across 0."""
+    def ordered(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def held_in_slices(torch, out, g, d, mask, what):
+    """K1's bf16 output against ``ref.fl_aggregate_ref`` a slice of
+    ``COLUMN_CHUNK`` columns at a time, each slice finite and within
+    ``K1_ULPS``; returns (max |kernel - plain|, max ulps, elements that
+    differ)."""
+    from repro_torch.kernels import ref
+    worst, ulps, n_diff = 0.0, 0, 0
+    for c0 in range(0, out.shape[0], COLUMN_CHUNK):
+        c1 = min(out.shape[0], c0 + COLUMN_CHUNK)
+        plain = ref.fl_aggregate_ref(g[c0:c1], d[:, c0:c1], mask)
+        got = out[c0:c1]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K1 on {what}: non-finite output in "
+                                 f"columns {c0}:{c1}")
+        gap = bf16_ulps(torch, got, plain)
+        if gap > K1_ULPS:
+            raise AssertionError(f"K1 on {what}: columns {c0}:{c1} differ "
+                                 f"from the plain version by {gap} bf16 ulp")
+        worst = max(worst, float((got.float() - plain.float()).abs().max()))
+        ulps = max(ulps, gap)
+        n_diff += int((got != plain).sum())
+    return worst, ulps, n_diff
+
+
+def reduced_batch(torch, cfg, K, B, S, seed):
+    """A ``{name: [K, B, ...]}`` batch on the CPU from a seeded generator:
+    tokens, or embeds and labels for an ``embeds_input`` configuration."""
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.embeds_input:
+        return {"embeds": torch.randn(K, B, S, cfg.d_model, generator=gen),
+                "labels": torch.randint(0, cfg.vocab, (K, B, S),
+                                        generator=gen, dtype=torch.int32)}
+    return {"tokens": torch.randint(0, cfg.vocab, (K, B, S), generator=gen,
+                                    dtype=torch.int32)}
+
+
+def held_rows(torch, got, want, what):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, **TRAIN_CPU_TOL, msg=what)
+    return max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+
+
+def reduced_training(torch):
+    """(c) every reduced configuration, float32, on the card and the CPU
+    from the same state and batch: ``loss`` and its gradients, one replica
+    round (``fl_train_step``, K 2, mask [1, 0], 2 local steps) and one
+    masked-dp round; returns the kernel launches on the card."""
+    from repro_torch import random as jr
+    from repro_torch.configs import get, names
+    from repro_torch.fl import distributed as D
+
+    K, B, S = 2, 2, 16
+    totals = [0, 0, 0]
+    t0 = time.perf_counter()
+    worst = 0.0
+    for name in names():
+        cfg = get(name).reduced()
+        batch = reduced_batch(torch, cfg, K, B, S, seed=len(name))
+        mask = torch.tensor([1.0, 0.0])
+        probs = torch.tensor([0.5, 0.25])
+        runs = {}
+        zero_counts()
+        for dev in ("cuda", "cpu"):
+            b = {n: x.to(dev) for n, x in batch.items()}
+            state = D.init_dist_state(jr.PRNGKey(0), cfg, K, device=dev)
+            loss, grads = D.loss_and_grads(
+                cfg, state.global_params, {n: x[0] for n, x in b.items()})
+            rep, m_rep = D.fl_train_step(
+                D.DistFLState(*state), cfg, b, mask.to(dev), 0.01,
+                local_iters=2)
+            mdp_state = D.init_dist_state(jr.PRNGKey(0), cfg, K,
+                                          mode="masked_dp", device=dev)
+            mdp, m_mdp = D.fl_train_step_masked_dp(
+                mdp_state, cfg, b, mask.to(dev), probs.to(dev), 0.01)
+            runs[dev] = (loss, grads, rep, m_rep, mdp, m_mdp)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = read_counts()
+        (lc, gc, rc, mrc, dc, mdc), (lp, gp, rp, mrp, dp, mdp_) = \
+            runs["cuda"], runs["cpu"]
+        torch.testing.assert_close(lc.cpu(), lp, **TRAIN_CPU_TOL)
+        err = held_rows(torch, gc, gp, f"{name} gradients")
+        for got, want in ((mrc, mrp), (mdc, mdp_)):
+            if int(got["participants"]) != int(want["participants"]):
+                raise AssertionError(f"{name}: participants differ")
+            torch.testing.assert_close(got["loss"].cpu(), want["loss"],
+                                       **TRAIN_CPU_TOL)
+        err = max(err, held_rows(torch, rc.global_params, rp.global_params,
+                                 f"{name} replica global"),
+                  held_rows(torch, rc.client_params, rp.client_params,
+                            f"{name} replica clients"),
+                  held_rows(torch, dc.global_params, dp.global_params,
+                            f"{name} masked-dp global"))
+        worst = max(worst, err)
+        mixers = {m for m, _ in cfg.layer_plan()}
+        if counts[0] != len(D.row_layout(cfg).dtypes) or \
+                ("attn" in mixers) != (counts[1] > 0) or \
+                ("mamba" in mixers) != (counts[2] > 0):
+            raise AssertionError(f"{name}: launches (K1, K2, K3) {counts}")
+        totals = [a + c for a, c in zip(totals, counts)]
+        log(f"[train-reduced] {cfg.name} ({'/'.join(sorted(mixers))}): loss, "
+            f"gradients, a replica round and a masked-dp round card = CPU "
+            f"(max |card - cpu| {err:.3e}); launches (K1, K2, K3) = {counts}")
+    log(f"[train-reduced] all {len(names())} reduced configurations card = "
+        f"CPU at rtol {TRAIN_CPU_TOL['rtol']}, atol {TRAIN_CPU_TOL['atol']} "
+        f"(worst {worst:.3e}); launches (K1, K2, K3) = {tuple(totals)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return tuple(totals)
+
+
+def fwd_bwd_ms(torch, fn, inputs, grads, iters=5):
+    """ms of ``fn`` forward alone and of forward + backward (CUDA events)."""
+    def fwd():
+        with torch.no_grad():
+            fn(*inputs)
+
+    def both():
+        out = fn(*inputs)
+        out = out if isinstance(out, tuple) else (out,)
+        torch.autograd.grad(out, inputs, grads[:len(out)])
+
+    times = []
+    for step in (fwd, both):
+        step()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return times
+
+
+def kernel_gradients(torch):
+    """(c) K2's and K3's autograd functions on the card against autograd
+    through their plain versions on the same inputs (the forward within
+    phase 4's and 6's tolerances, every input's gradient equal: the
+    backward recomputes the same plain version), and what the recompute
+    costs: forward, forward + backward through the function and through
+    the plain version alone."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    k1, k2, k3 = kernel_counters()
+    report = {}
+    for B, S, H, KV, hd, dname in ((2, 64, 32, 8, 64, "bfloat16"),
+                                   (2, 1024, 32, 8, 64, "bfloat16"),
+                                   (2, 16, 4, 1, 64, "float32")):
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda")
+                   .to(dtype).requires_grad_() for n in (H, KV, KV))
+        g = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+        before = k2.launches
+        out = ops.flash_attention(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        want_out = ref.flash_attention_ref(q, k, v)
+        want = torch.autograd.grad(want_out, (q, k, v), g)
+        if k2.launches != before + 1:
+            raise AssertionError("K2's function did not launch K2")
+        torch.testing.assert_close(out.float(), want_out.float(),
+                                   **TOL[dname])
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        t_fn = fwd_bwd_ms(torch, ops.flash_attention, (q, k, v), (g,))
+        t_plain = fwd_bwd_ms(torch, ref.flash_attention_ref, (q, k, v), (g,))
+        report[("K2", B, S, dname)] = (t_fn, t_plain)
+        log(f"[grad] K2 B {B} S {S} H {H} KV {KV} hd {hd} {dname}: forward "
+            f"within tolerance, dq/dk/dv equal to the plain version's "
+            f"autograd; forward {t_fn[0]:.3f} ms, forward + recompute "
+            f"backward {t_fn[1]:.3f} ms (backward {t_fn[1] - t_fn[0]:.3f} "
+            f"ms); plain forward {t_plain[0]:.3f} ms, plain forward + "
+            f"backward {t_plain[1]:.3f} ms")
+    for B, S, d, N in ((2, 16, 512, 16), (2, 64, 512, 16)):
+        xc, dt = (torch.randn(B, S, d, generator=gen, device="cuda")
+                  * s for s in (1.0, 0.05))
+        dt = dt.abs()
+        Bm, Cm = (torch.randn(B, S, N, generator=gen, device="cuda")
+                  for _ in range(2))
+        A = -torch.arange(1, N + 1, device="cuda", dtype=torch.float32)[
+            None].repeat(d, 1)
+        D_ = torch.randn(d, generator=gen, device="cuda")
+        inputs = tuple(t.requires_grad_() for t in (xc, dt, Bm, Cm, A, D_))
+        gy = torch.randn(B, S, d, generator=gen, device="cuda")
+        gh = torch.randn(B, d, N, generator=gen, device="cuda")
+        before = k3.launches
+        y, h = ops.selective_scan(*inputs)
+        got = torch.autograd.grad((y, h), inputs, (gy, gh))
+        wy, wh = ref.selective_scan_ref(*inputs)
+        want = torch.autograd.grad((wy, wh), inputs, (gy, gh))
+        if k3.launches != before + 1:
+            raise AssertionError("K3's function did not launch K3")
+        torch.testing.assert_close(y, wy, **SCAN_TOL)
+        torch.testing.assert_close(h, wh, **SCAN_TOL)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        t_fn = fwd_bwd_ms(torch, ops.selective_scan, inputs, (gy, gh))
+        t_plain = fwd_bwd_ms(torch, ref.selective_scan_ref, inputs, (gy, gh))
+        report[("K3", B, S, "float32")] = (t_fn, t_plain)
+        log(f"[grad] K3 B {B} S {S} d {d} N {N} float32: y and h_last within "
+            f"tolerance, all six gradients equal to the plain version's "
+            f"autograd; forward {t_fn[0]:.3f} ms, forward + recompute "
+            f"backward {t_fn[1]:.3f} ms (backward {t_fn[1] - t_fn[0]:.3f} "
+            f"ms); plain forward {t_plain[0]:.3f} ms, plain forward + "
+            f"backward {t_plain[1]:.3f} ms")
+    return report
+
+
+def training(torch, bandwidth):
+    """Phase 9: (a) xLSTM-125M, (b) Llama-3.2-1B training at full width,
+    (c) every reduced configuration card = CPU and K2/K3 under autograd;
+    returns the launches on the phase's paths and K1's row at the Llama
+    round's shape."""
+    from repro_torch.configs import get
+    from repro_torch.fl.distributed import param_count
+
+    t0 = time.perf_counter()
+    k1_shapes = kernel_counters()[0].shapes
+    k1_shapes.clear()
+    k1_xlstm = xlstm_full_width(torch)
+    torch.cuda.empty_cache()
+    (k1_llama, k2_llama, _), k1_row = llama_training(torch, bandwidth)
+    reduced = reduced_training(torch)
+    shapes = sorted(k1_shapes - {("plain", "bfloat16", TRAIN_K,
+                                  param_count(get(LLAMA)))})
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    worst = max(check_case(torch, mode, dname, R, M, 0, gen)
+                for mode, dname, R, M in shapes)
+    log(f"[kernel] phase 9 gave K1 {len(shapes) + 1} shapes: the Llama "
+        f"round's (held above) and {shapes}, each held against the plain "
+        f"version now (worst |kernel - plain| {worst:.3e})")
+    grads = kernel_gradients(torch)
+    k1 = k1_xlstm + k1_llama + reduced[0]
+    log(f"[train] phase 9 in {time.perf_counter() - t0:.1f} s; launches on "
+        f"its paths: K1 {k1} (xLSTM {k1_xlstm}, Llama {k1_llama}, reduced "
+        f"{reduced[0]}), K2 {k2_llama + reduced[1]} (Llama {k2_llama}, "
+        f"reduced {reduced[1]}), K3 {reduced[2]} (reduced)")
+    return {"K1": k1, "K2": k2_llama + reduced[1], "K3": reduced[2],
+            "k1_row": k1_row, "grads": grads}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4059,6 +4612,10 @@ def main() -> int:
     jamba_float32(torch)
     torch.cuda.empty_cache()
     jamba_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    train = training(torch, bandwidth)
+    k2_train = train["grads"][("K2", 2, 64, "bfloat16")]
+    k3_train = train["grads"][("K3", 2, 16, "float32")]
     kernels = {"kernels": [{
         "name": "fl_aggregate",
         "route": "cuda",
@@ -4072,6 +4629,7 @@ def main() -> int:
         "nonfinite_rows": poison,
         "max_abs_err": max_err,
         **timing[("plain", K, MAIN_M, "float32")],
+        "phase_9": {**train["k1_row"], "launches": train["K1"]},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -4080,6 +4638,11 @@ def main() -> int:
         "launches": attn_launches,
         "max_abs_err": attn_err,
         **attn_timing[MAIN_ATTN],
+        "phase_9": {"launches": train["K2"],
+                    "shape": "B 2 S 64 H 32 KV 8 hd 64 bfloat16",
+                    "forward_ms": k2_train[0][0],
+                    "forward_recompute_backward_ms": k2_train[0][1],
+                    "plain_forward_backward_ms": k2_train[1][1]},
     }, {
         "name": "selective_scan",
         "route": "cuda",
@@ -4088,10 +4651,16 @@ def main() -> int:
         "launches": scan_launches,
         "max_abs_err": scan_err,
         **scan_timing[MAIN_SCAN],
+        "phase_9": {"launches": train["K3"],
+                    "shape": "B 2 S 16 d 512 N 16 float32",
+                    "forward_ms": k3_train[0][0],
+                    "forward_recompute_backward_ms": k3_train[0][1],
+                    "plain_forward_backward_ms": k3_train[1][1]},
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; K1 timings "
-        f"at R={K}, M={MAIN_M} fp32 (L2 dirty), K2 at B4 S1024 H32 KV8 hd64 bf16, K3 at "
-        f"B4 S1024 d16384 N16 (bf16 x), on {smi}")
+        f"at R={K}, M={MAIN_M} fp32 (L2 dirty) and, in phase_9, at the "
+        f"Llama round's R 4 x M 1,235,814,400 bf16; K2 at B4 S1024 H32 KV8 "
+        f"hd64 bf16, K3 at B4 S1024 d16384 N16 (bf16 x), on {smi}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,16 @@ first layer has a 4-D weight goes back to that tree.
 as numpy arrays, unstacks the leading ``[n_repeats]`` axis of ``blocks``
 into the port's ``layers``, and casts each leaf to the model's dtype;
 ``transformer_to_numpy`` stacks it back (as float32 arrays, since numpy has
-no bfloat16).
+no bfloat16).  Every mixer's leaves go both ways by name: attention,
+Mamba, MoE and the xLSTM's (``mlstm``: ``wq`` … ``out``, ``wi``/``wf``;
+``slstm``: ``out`` and ``w``/``r``/``b`` of each gate).
+
+``dist_state_from_jax`` takes JAX's ``fl.distributed.DistFLState`` (the
+global tree and the clients' and anchors' trees stacked on a leading
+``[K]`` axis, as numpy arrays) to the port's flat rows (``[P_g]`` and
+``[K, P_g]`` per dtype of ``fl.distributed.row_layout``);
+``dist_state_to_numpy`` goes back, so both packages can start a round from
+the same state.
 """
 from __future__ import annotations
 
@@ -109,5 +118,70 @@ def transformer_to_numpy(model) -> dict:
 
 
 def _stack(trees):
-    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-            else np.stack([t[k] for t in trees]) for k in trees[0]}
+    """The trees' arrays stacked on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {n: _stack([t[n] for t in trees]) for n in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return np.stack(trees)
+
+
+def _index(tree, k: int):
+    """Leaf ``[k]`` of every array of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {n: _index(v, k) for n, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index(v, k) for v in tree]
+    return np.asarray(tree)[k]
+
+
+def _num_clients(stacked) -> int:
+    while isinstance(stacked, (dict, list, tuple)):
+        stacked = (next(iter(stacked.values())) if isinstance(stacked, dict)
+                   else stacked[0])
+    return np.asarray(stacked).shape[0]
+
+
+def dist_state_from_jax(state, cfg, device=None):
+    """JAX's ``DistFLState`` (numpy leaves; clients and anchors stacked on
+    ``[K]``, or ``None`` in masked-dp mode) → the port's
+    ``fl.distributed.DistFLState`` of rows on ``device``."""
+    from .fl.distributed import DistFLState, row_layout
+    layout = row_layout(cfg)
+    device = resolve_device(device)
+
+    def rows(tree):
+        return layout.flatten(transformer_from_jax(tree, cfg, device))
+
+    def stacked_rows(stacked):
+        per = [rows(_index(stacked, k)) for k in range(_num_clients(stacked))]
+        return tuple(torch.stack([p[g] for p in per])
+                     for g in range(len(layout.dtypes)))
+
+    global_tree, clients, anchors = state
+    if clients is None:
+        return DistFLState(rows(global_tree), None, None)
+    return DistFLState(rows(global_tree), stacked_rows(clients),
+                       stacked_rows(anchors))
+
+
+def dist_state_to_numpy(state, cfg):
+    """The inverse of :func:`dist_state_from_jax`: a ``DistFLState`` of JAX
+    trees (float32 numpy leaves; clients and anchors stacked on
+    ``[K]``)."""
+    from .fl.distributed import DistFLState, row_layout
+    layout = row_layout(cfg)
+
+    def tree(rows):
+        return transformer_to_numpy(layout.module(cfg, rows))
+
+    def stacked(rows):
+        if rows is None:
+            return None
+        return _stack([tree(tuple(r[k] for r in rows))
+                       for k in range(rows[0].shape[0])])
+
+    return DistFLState(tree(state.global_params),
+                       stacked(state.client_params),
+                       stacked(state.anchor_params))

@@ -1,4 +1,4 @@
-"""Data substrate: synthetic datasets, the non-IID partitioners (the
+"""Data substrate: synthetic datasets (the LLM's token stream too), the non-IID partitioners (the
 host greedy one and the index-operation ones), host batching, and the
 device-resident federated store with its per-round and per-client
 minibatch streams and the host-streaming sampler."""
@@ -15,9 +15,11 @@ from .device import (DATA_STREAM, DEFAULT_BUDGET_BYTES,
                      shard_store, stack_rounds_reference, store_bytes)
 from .noniid import heterogeneity, shard_noniid
 from .pipeline import BatchIterator, client_batches
-from .synthetic import Dataset, make_cifar_like, make_mnist_like
+from .synthetic import (Dataset, make_cifar_like, make_mnist_like,
+                        make_token_stream)
 
-__all__ = ["Dataset", "make_mnist_like", "make_cifar_like", "shard_noniid",
+__all__ = ["Dataset", "make_mnist_like", "make_cifar_like",
+           "make_token_stream", "shard_noniid",
            "heterogeneity", "BatchIterator", "client_batches", "DATA_STREAM",
            "DeviceDataStore", "StreamingSampler", "choose_data_path",
            "device_memory_budget", "DEFAULT_BUDGET_BYTES",

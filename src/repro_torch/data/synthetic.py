@@ -8,6 +8,8 @@ from class prototypes, per-class low-rank manifolds and noise, all drawn
 with the port's threefry (:mod:`repro_torch.random`).  Labels are bit-identical to the JAX
 generator's; the inputs agree to float32 rounding (``normal`` goes through
 ``erfinv``, which differs by a few ulps between the frameworks).
+``make_token_stream`` (the LLM's synthetic corpus) is integer draws only,
+so its tokens are the JAX generator's bit for bit.
 """
 from __future__ import annotations
 
@@ -66,3 +68,26 @@ def make_cifar_like(key: torch.Tensor, n_train: int = 50_000,
     x = torch.tanh(x).reshape(-1, 32, 32, 3)
     return (Dataset(x[:n_train], y[:n_train], num_classes),
             Dataset(x[n_train:], y[n_train:], num_classes))
+
+
+def make_token_stream(key: torch.Tensor, n_seqs: int, seq_len: int,
+                      vocab: int, device=None) -> Dataset:
+    """Synthetic LM data: per-sequence Markov-ish token chains, so that a
+    language model has learnable structure (bigram transitions):
+    ``next = (prev · a + 7 + noise) mod vocab`` with ``a`` drawn once in
+    [3, 17) and the noise in ``[0, max(vocab // 50, 2))``, one key a step
+    from ``split(key, seq_len − 1)``.  Tokens ``[n_seqs, seq_len]`` int32
+    on ``device`` (``None`` means the card), with all-zero labels."""
+    device = resolve_device(device)
+    key = key.to(device)
+    k1, k2 = jr.split(key)
+    a = int(jr.randint(k1, (), 3, 17))
+    tok = jr.randint(k2, (n_seqs,), 0, vocab).to(torch.int64)
+    cols = [tok]
+    for k in jr.split(key, seq_len - 1):
+        noise = jr.randint(k, (n_seqs,), 0, max(vocab // 50, 2))
+        tok = (tok * a + 7 + noise) % vocab
+        cols.append(tok)
+    toks = torch.stack(cols, dim=1).to(torch.int32)
+    return Dataset(toks, torch.zeros(n_seqs, dtype=torch.int32,
+                                     device=device), vocab)

@@ -1,7 +1,6 @@
 """Generic decoder stack: embed → layers → norm → logits.  Counterpart of
-``repro.models.transformer`` for the ``attn`` and ``mamba`` mixers and the
-dense SwiGLU and ``moe`` FFNs; the ``mlstm`` and ``slstm`` mixers are not
-ported yet and raise ``NotImplementedError``.
+``repro.models.transformer``: the ``attn``, ``mamba``, ``mlstm`` and
+``slstm`` mixers and the dense SwiGLU and ``moe`` FFNs.
 
 :class:`Transformer` is an ``nn.Module`` whose layers are an
 ``nn.ModuleList`` of :class:`Block` (JAX stacks them on a leading
@@ -9,14 +8,23 @@ ported yet and raise ``NotImplementedError``.
 ``r``-th slice of JAX's plan position ``i``).  Weights keep JAX's
 ``[n_in, n_out]`` layout.
 
-Entry points (eager; call them under ``torch.inference_mode()``):
+Entry points (eager; call the inference ones under
+``torch.inference_mode()``):
   init_params(key, cfg, device)                 → Transformer
   forward(model, tokens|embeds)                 → (logits [B,S,V] fp32, aux)
+  loss(model, batch)                            → scalar
   prefill(model, tokens|embeds, capacity)       → (logits [B,1,V], caches)
   decode_step(model, token, caches)             → (logits [B,1,V], caches)
   init_caches(cfg, batch, capacity, dtype, device)
 
 ``aux`` is the sum of the MoE layers' load-balance losses (0 without MoE).
+
+The parameters are built with ``requires_grad=False``, so inference builds
+no graph.  Training differentiates :func:`loss` through
+``torch.func.functional_call`` with tensors that do require gradients in
+place of the parameters (``fl/distributed.py`` hands it per-layer views of
+a flat row); K2 and K3 then run through their autograd functions
+(``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -26,10 +34,10 @@ from torch import nn
 from .. import random as jr
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from . import attention, mamba, moe
+from . import attention, mamba, moe, xlstm
 from .layers import dense_init, init_swiglu, rms_norm, swiglu
 
-MIXERS = ("attn", "mamba")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -44,13 +52,12 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first mixer of ``cfg`` that
-    the port does not have yet."""
+def check_mixers(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` naming the first mixer of ``cfg`` that is none
+    of :data:`MIXERS` (JAX raises ``ValueError`` for it too)."""
     for mixer, _ in cfg.layer_plan():
         if mixer not in MIXERS:
-            raise NotImplementedError(
-                f"{cfg.name}: the {mixer!r} mixer is not ported yet")
+            raise ValueError(f"{cfg.name}: unknown mixer {mixer!r}")
 
 
 class SwiGLU(nn.Module):
@@ -64,6 +71,19 @@ class SwiGLU(nn.Module):
         return swiglu(x, self.w1, self.w3, self.w2)
 
 
+_MIXER_MODULES = {"attn": attention.Attention, "mamba": mamba.Mamba,
+                  "mlstm": xlstm.MLSTM, "slstm": xlstm.SLSTM}
+_MIXER_INIT = {"attn": attention.init_attn, "mamba": mamba.init_mamba,
+               "mlstm": xlstm.init_mlstm, "slstm": xlstm.init_slstm}
+#: (forward and prefill, decode) of the mixers that carry a recurrent state
+_RECURRENT = {"mamba": (mamba.mamba_forward, mamba.mamba_decode),
+              "mlstm": (xlstm.mlstm_forward, xlstm.mlstm_decode),
+              "slstm": (xlstm.slstm_forward, xlstm.slstm_decode)}
+_CACHE_INIT = {"mamba": mamba.init_mamba_cache,
+               "mlstm": xlstm.init_mlstm_cache,
+               "slstm": xlstm.init_slstm_cache}
+
+
 class Block(nn.Module):
     """One layer: ``x + mixer(rms_norm(x))``, then ``+ ffn(rms_norm(x))``
     when the layer has an FFN (JAX's ``_apply_layer``)."""
@@ -74,10 +94,7 @@ class Block(nn.Module):
         self.cfg = cfg
         self.mixer_kind, self.ffn_kind = mixer, ffn
         self.ln1 = _param((cfg.d_model,), dtype, device)
-        if mixer == "attn":
-            self.mixer = attention.Attention(cfg, dtype, device)
-        else:
-            self.mixer = mamba.Mamba(cfg, dtype, device)
+        self.mixer = _MIXER_MODULES[mixer](cfg, dtype, device)
         if ffn != "none":
             self.ln2 = _param((cfg.d_model,), dtype, device)
         if ffn == "dense":
@@ -94,11 +111,12 @@ class Block(nn.Module):
                 return attention.attn_prefill(p, cfg, h, positions,
                                               capacity)
             return attention.attn_decode(p, cfg, h, cache)
+        forward, decode = _RECURRENT[self.mixer_kind]
         if mode == "train":
-            return mamba.mamba_forward(p, cfg, h), cache
+            return forward(p, cfg, h), cache
         if mode == "prefill":
-            return mamba.mamba_forward(p, cfg, h, return_cache=True)
-        return mamba.mamba_decode(p, cfg, h, cache)
+            return forward(p, cfg, h, return_cache=True)
+        return decode(p, cfg, h, cache)
 
     def forward(self, x, positions, mode: str = "train", cache=None,
                 capacity: int = 0):
@@ -125,7 +143,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        check_ported(cfg)
+        check_mixers(cfg)
         self.cfg = cfg
         device = resolve_device(device)
         dtype = _dtype(cfg)
@@ -149,10 +167,7 @@ class Transformer(nn.Module):
 def _init_layer(block: Block, key, cfg: ArchConfig, dtype, device):
     kmix, kffn = jr.split(key)
     block.ln1.fill_(1.0)
-    if block.mixer_kind == "attn":
-        attention.init_attn(block.mixer, kmix)
-    else:
-        mamba.init_mamba(block.mixer, kmix)
+    _MIXER_INIT[block.mixer_kind](block.mixer, kmix)
     if block.ffn_kind != "none":
         block.ln2.fill_(1.0)
     if block.ffn_kind == "dense":
@@ -190,15 +205,16 @@ def _layer_cache(cfg: ArchConfig, mixer: str, batch: int, capacity: int,
         cap = min(capacity, cfg.sliding_window) if cfg.sliding_window \
             else capacity
         return attention.init_cache(cfg, batch, cap, dtype, device)
-    return mamba.init_mamba_cache(cfg, batch, dtype, device)
+    return _CACHE_INIT[mixer](cfg, batch, dtype, device)
 
 
 def init_caches(cfg: ArchConfig, batch: int, capacity: int, dtype=None,
                 device=None) -> list:
     """One empty cache per layer, of its mixer's kind: an
     :class:`attention.KVCache` (capped at the sliding window when there is
-    one) or a :class:`mamba.MambaCache`."""
-    check_ported(cfg)
+    one), a :class:`mamba.MambaCache`, an :class:`xlstm.MLSTMCache` or an
+    :class:`xlstm.SLSTMCache`."""
+    check_mixers(cfg)
     device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
     return [_layer_cache(cfg, mixer, batch, capacity, dtype, device)
@@ -243,6 +259,33 @@ def forward(model: Transformer, tokens=None, embeds=None):
     """Full-sequence causal forward → (logits [B,S,V] fp32, aux)."""
     x, aux = forward_hidden(model, tokens, embeds)
     return _logits(model, x), aux
+
+
+def loss(model: Transformer, batch: dict) -> torch.Tensor:
+    """Next-token (or labeled) cross-entropy plus the MoE aux loss, a
+    float32 scalar.
+
+    batch: ``{"tokens": [B,S]}`` or ``{"embeds": [B,S,d], "labels":
+    [B,S]}``.  As in JAX, the next-token shift happens on the hidden states
+    before the unembedding, and the loss is ``logsumexp(logits) −
+    logits[target]``: JAX picks the target with a one-hot contraction,
+    whose one nonzero term gives the gather's value.
+    """
+    if "embeds" in batch:
+        x, aux = forward_hidden(model, embeds=batch["embeds"])
+        targets = batch["labels"]
+    else:
+        tokens = batch["tokens"]
+        x, aux = forward_hidden(model, tokens=tokens)
+        x = x[:, :-1]
+        targets = tokens[:, 1:]
+    logits = _logits(model, x)                          # [B,S',V] float32
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    ce = torch.mean(lse - tgt)
+    moe_cfg = model.cfg.moe
+    return ce + (moe_cfg.aux_loss_weight if moe_cfg is not None else 0.0) \
+        * aux
 
 
 def prefill(model: Transformer, tokens=None, embeds=None,

@@ -11,6 +11,7 @@ leaves).  Finite inputs are held against JAX's jnp path; rows with NaN/Inf
 against JAX's Pallas kernel in interpret mode (``use_pallas=True``), whose
 weighted mode zeroes non-finite elements as the port does on both devices.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax.numpy as jnp

@@ -19,6 +19,7 @@ Tolerances:
 The port's solves run once each, in a module fixture (seconds apiece on the
 CPU).
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ Tolerances: the kernel's are tests/test_kernels.py's (fp32 2e-5, bf16 3e-2).
 The mixer's, rtol 1e-4 / atol 1e-5 (tests/golden/harness.py): float32 on
 both sides, but XLA's and PyTorch's CPU matrix products sum in other orders.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax

@@ -10,6 +10,7 @@ atol 1e-5 at the test widths and at the defaults; the flat rows are W
 34,524 and 620,364; and ``run_simulation`` with the CNN as
 tests/test_system.py's ``test_e2e_cnn_cifar_like`` runs it: masks bit for
 bit, accuracy, loss and energy within the same tolerance."""
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

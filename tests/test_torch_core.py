@@ -9,6 +9,7 @@ W near its branch point); the iterative solves to rtol 1e-4 on p and w with
 which can move a convergence check by one iteration.  The batched port
 solve equals its per-lane solve bit for bit.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import importlib
 
 import jax

@@ -9,6 +9,7 @@ only PyTorch:
 
 Tolerances are tests/test_kernels.py's: fp32 2e-5, bf16 3e-2.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import pytest
 import torch
 

@@ -15,6 +15,7 @@ float32.  The stack's, rtol 1e-4 / atol 1e-4: float32 on both sides (TF32 off),
 the sums taken in other orders by cuBLAS and the CPU's BLAS, and the scan's
 by K3 (``dt·x`` first, ``exp2f``) and its plain version.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import pytest

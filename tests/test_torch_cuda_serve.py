@@ -19,6 +19,7 @@ file imports neither JAX nor the JAX package:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_serve.py
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import threading
 
 import numpy as np

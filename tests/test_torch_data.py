@@ -8,6 +8,7 @@ for bit.  Floats: inputs built through ``normal`` to 1e-5 (erfinv rounds a
 few ulps apart, then a 49-term product and tanh); the MLP to rtol 1e-5 on
 the same weights and inputs (products summed in another order).
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ and the final model to the golden tolerance rtol 1e-4, atol 1e-5.  In the
 port, the stream path equals the device path bit for bit: both gather the
 same examples and run the same round transition.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax

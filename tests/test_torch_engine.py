@@ -8,6 +8,7 @@ energy, accuracy and loss to the golden tolerance rtol=1e-4, atol=1e-5
 the online and offline proposed schemes, random, greedy, age-based, csma
 and age-aware selection, the scheme aggregators and the guards.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax

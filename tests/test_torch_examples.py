@@ -4,6 +4,7 @@
 against the steps of the JAX script on the same flags.  The port draws its
 own data from the same keys, so masks must be bit for bit and accuracy,
 loss and energy within rtol 1e-4, atol 1e-5."""
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import importlib.util
 from pathlib import Path
 

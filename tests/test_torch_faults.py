@@ -11,6 +11,7 @@ golden rtol 1e-4, atol 1e-5 (tests/golden/harness.py), NaN in the same
 places (``equal_nan`` and an explicit position check).  The world is
 tests/test_faults.py's tiny one: K 5, T 8, a 64-24-10 MLP.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax

@@ -4,6 +4,7 @@
 same seed, the port on the CPU prints the JAX entry point's greedy tokens.  Both draw their weights and
 prompts from one threefry key; the tokens are compared exactly (argmax of
 logits that agree to float32 summation order)."""
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import json
 
 import pytest

@@ -13,6 +13,7 @@ participation masks by sha256, the eval grid exactly, loss, accuracy and
 the energy timeline within its RTOL 1e-4 / ATOL 1e-5.  The port's three
 paths must also realize the same masks.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax

@@ -1,6 +1,7 @@
 """The port stands alone: no module of src/repro_torch, no example of the
 port (examples/*_torch.py), no script of tools/ and not chip_smoke.py
 imports JAX or the JAX package (``repro``)."""
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import ast
 from pathlib import Path
 

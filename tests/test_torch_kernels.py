@@ -11,6 +11,9 @@ main path's shape.
 
 Tolerances are tests/test_kernels.py's: fp32 2e-5, bf16 3e-2.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +23,6 @@ from repro.kernels import ref as jref
 from repro.kernels.fl_aggregate import fl_aggregate as j_pallas
 from repro_torch.fl.state import ParamLayout
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels import fl_aggregate as k1
 from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda, launch_plan
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
@@ -28,6 +30,9 @@ TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 MODES = ("plain", "subset", "guarded")
+# the K1 module itself: the package's ``fl_aggregate`` attribute is the
+# dispatcher, as in ``repro.kernels``
+k1 = importlib.import_module("repro_torch.kernels.fl_aggregate")
 
 
 def inputs(K, M, seed=0):

@@ -14,6 +14,7 @@ tests/test_obs.py's rtol 1e-5, atol 1e-6).  The world is
 tests/test_engine_parity.py's ``tiny_world`` (K 5, 64 features, a 64-24-10
 MLP).
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
 import numpy as np
 import pytest

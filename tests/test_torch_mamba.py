@@ -12,6 +12,7 @@ PyTorch's ``exp`` becomes up to ~1e-5 relative.  Activations and states
 rtol 1e-4, atol 1e-5 (tests/golden/harness.py): float32 on both sides, the
 matrix products and the scan summed in other orders.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ blended one, a sparse matrix builds phase B once, and the sweeps' input
 checks.  The world is tests/test_scheme_parity.py's matrix world: K 5, T 8,
 a 32-16-10 MLP, severities d = 2 and 4 padded to 256, two seed lanes.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax

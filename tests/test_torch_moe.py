@@ -9,6 +9,7 @@ same slots are filled (the random gates have no ties, so ``torch.topk``
 and ``lax.top_k`` rank alike), and the expert products are summed in other
 orders by XLA's and PyTorch's CPU matrix products.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax

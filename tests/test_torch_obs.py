@@ -17,6 +17,7 @@ The world is tests/test_obs.py's: tests/test_engine_parity.py's
 ``tiny_world`` (K 5, T 8, 32 features, a 32-24-10 MLP), built by JAX and
 converted through numpy.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 import json
 import os

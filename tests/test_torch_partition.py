@@ -10,6 +10,7 @@ draws take their transcendental steps in float64 rounded once, where XLA's
 float32 ``log``/``log1p``/``exp`` are not correctly rounded: they agree to
 a few ulp, and each test asserts the share of draws that are bit-equal.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

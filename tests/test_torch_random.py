@@ -1,6 +1,7 @@
 """The port's threefry2x32 (repro_torch.random) against jax.random: keys,
 bits, uniforms, randint and exponentials bit for bit, normals to a few ulps.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

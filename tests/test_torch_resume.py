@@ -14,6 +14,7 @@ Segmented, killed-and-resumed and uninterrupted runs of the port are held
 bit for bit to one another; the port to JAX with masks bit for bit and
 floats within rtol 1e-4, atol 1e-5.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 import os
 

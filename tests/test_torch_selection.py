@@ -10,6 +10,7 @@ is held to rtol 1e-5 (a float32 sum of T·K probabilities, in XLA's order on
 one side).  The offline policy's schedule comes from a fake solve here (the
 solve itself is held in tests/test_torch_algorithm1.py).
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import types
 
 import jax

@@ -13,6 +13,7 @@ log-depth associative scan, so the products are taken in other orders.
 bf16 inputs are held to it too, since both sides read the same bf16 values
 and compute in float32.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ the load generator's precondition — plus what the flat-row server adds:
 ``pull()`` views that no flush changes, in each of K1's three modes, and
 trees or rows on ``submit``.  Policy serving is held against JAX's server
 at the same ledger: ``p`` and the upload cost within rtol 1e-5."""
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 import threading
 

@@ -13,6 +13,7 @@ JAX's log lands on JAX's served model.  Also: ``make_client_step``'s delta
 against JAX's, and the threaded load-generator session of
 tests/test_serve.py (port only), replaying.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ round-by-round phase A, the bucket heuristics and the spill path, the
 config errors, one phase-B build across a population sweep, and no K-sized
 tensor anywhere in phase B.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 import warnings
 

@@ -3,7 +3,8 @@
 (GQA with G > 1, tied and untied embeddings, a sliding window with the ring
 wrapping, and reduced Jamba: Mamba and attention layers with MoE on every
 other one), prefill → decode parity inside the port, the caches of each
-mixer, the mixers not ported yet, and a round trip through ``convert``.
+mixer, the xLSTM stacks that used to raise, and a round trip through
+``convert``.
 
 Tolerances: weights within 3 ulp (the port's normals follow XLA's erfinv to
 a few ulps, tests/test_torch_random.py), Mamba's ``dt_bias`` at rtol 2e-5
@@ -14,6 +15,7 @@ products sum in other orders.  Reduced Jamba's logits and caches take atol
 the measured gap is 2.1e-5 on logits of order 1.  Prefill → decode inside
 the port uses tests/test_models.py's tolerances.
 """
+import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import dataclasses
 
 import jax
@@ -293,16 +295,37 @@ def test_entry_points_default_to_the_card(entry):
 
 @pytest.mark.parametrize("name,what", [("xlstm-125m", "'mlstm'")])
 def test_unported_mixers_and_ffns_raise(name, what):
+    """Every mixer of the configurations is ported now: reduced xLSTM-125M
+    builds its mLSTM (the mixer ``what`` names) and sLSTM layers with no
+    FFN, and only a mixer JAX does not know either raises, with JAX's
+    ``ValueError``.  The name is the one the test had while xLSTM's mixers
+    raised, kept so that its record stays one test's."""
     cfg = configs.get(name).reduced()
-    with pytest.raises(NotImplementedError, match=what):
-        T.init_params(jr.PRNGKey(0), cfg, device="cpu")
+    model = T.init_params(jr.PRNGKey(0), cfg, device="cpu")
+    assert repr(model.layers[0].mixer_kind) == what
+    assert [b.mixer_kind for b in model.layers] == ["mlstm", "slstm"]
+    assert not any(hasattr(b, "ffn") for b in model.layers)
+    bad = dataclasses.replace(cfg, mixer_pattern=("rwkv", "mlstm"))
+    with pytest.raises(ValueError, match="'rwkv'"):
+        T.init_params(jr.PRNGKey(0), bad, device="cpu")
 
 
 def test_slstm_raises():
+    """A stack of sLSTM layers alone, which used to raise, builds, runs and
+    carries an :class:`~repro_torch.models.xlstm.SLSTMCache` per layer whose
+    normalizer starts at 1.  The name is the one the test had while the
+    sLSTM raised, kept so that its record stays one test's."""
     cfg = dataclasses.replace(configs.get("xlstm-125m").reduced(),
                               mixer_pattern=("slstm",), n_layers=2)
-    with pytest.raises(NotImplementedError, match="'slstm'"):
-        T.Transformer(cfg, device="cpu")
+    model = T.init_params(jr.PRNGKey(1), cfg, device="cpu")
+    caches = T.init_caches(cfg, 2, 8, device="cpu")
+    assert all(torch.equal(c.n, torch.ones(2, cfg.d_model)) for c in caches)
+    toks = torch.from_numpy(tokens(cfg, 2, 6))
+    with torch.inference_mode():
+        logits, aux = T.forward(model, tokens=toks)
+        _, caches = T.prefill(model, tokens=toks, capacity=8)
+    assert logits.shape == (2, 6, cfg.vocab) and torch.isfinite(logits).all()
+    assert [type(c).__name__ for c in caches] == ["SLSTMCache"] * 2
 
 
 def assert_round_trip(jcfg):
