@@ -216,7 +216,7 @@ Phases, each reporting on its own lines:
    ``torch.addmv`` and its bound; (c) every reduced configuration in
    float32, the card against the CPU from the same state and batch: loss and
    gradients, one replica round (2 local steps) and one masked-dp round,
-   with K2 and K3 under their autograd functions; then those functions'
+   with K2 and K3 under autograd through their custom ops; then those ops'
    gradients against the plain versions' autograd on the same inputs and
    the recompute backward's cost (K2 at B 2 × S 64 and 1024, K3 at S 16 and
    64).
@@ -243,9 +243,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -4443,13 +4445,49 @@ def fwd_bwd_ms(torch, fn, inputs, grads, iters=5):
     return times
 
 
-def kernel_gradients(torch):
-    """(c) K2's and K3's autograd functions on the card against autograd
-    through their plain versions on the same inputs (the forward within
-    phase 4's and 6's tolerances, every input's gradient equal: the
-    backward recomputes the same plain version), and what the recompute
-    costs: forward, forward + backward through the function and through
-    the plain version alone."""
+def training_bounds(kind, shape, elem, bandwidth, sfu):
+    """(bound ms, 'bytes' | 'operations') of a kernel's forward and
+    backward: every input, output and gradient moved once; K2's six
+    matmuls over the kept pairs (two forward, four backward) at the
+    tensor-core peak of its dtype; K3's exponentials once (on the SFU)
+    and three times its forward flop."""
+    if kind == "K2":
+        B, S, H, KV, hd = shape
+        flop = 3 * 4 * B * H * hd * S * (S + 1) / 2
+        nbytes = (4 * B * S * H * hd + 4 * B * S * KV * hd) * elem
+        t_ops = flop / (BF16_PEAK if elem == 2 else FP32_PEAK) * 1e3
+    else:
+        B, S, d, N = shape
+        fwd_bytes = scan_bound(B, S, d, N, elem, bandwidth, sfu)[2]
+        nbytes = 2 * fwd_bytes + B * S * d * 4 + B * d * N * 4
+        exps = B * S * d * N
+        t_ops = max(exps / sfu, 3 * (6 * exps + 3 * B * S * d)
+                    / FP32_PEAK) * 1e3
+    t_bytes = nbytes / bandwidth * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def sdpa_ms(torch, q, k, v, g):
+    """``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    the same inputs (its ``[B, H, S, hd]`` layout: transposed views):
+    forward, and forward + backward."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True,
+                                              enable_gqa=True)
+    return fwd_bwd_ms(torch, sdpa, (qt, kt, vt), (g.transpose(1, 2),))
+
+
+def kernel_gradients(torch, bandwidth, sfu):
+    """(c) K2's and K3's custom ops on the card against autograd through
+    their plain versions on the same inputs (the forward within phase 4's
+    and 6's tolerances, every input's gradient equal: the backward
+    recomputes the same plain version), and what the recompute costs:
+    forward, forward + backward through the op and through the plain
+    version alone; for K2 SDPA's, for both the forward + backward bound."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -4468,20 +4506,28 @@ def kernel_gradients(torch):
         want_out = ref.flash_attention_ref(q, k, v)
         want = torch.autograd.grad(want_out, (q, k, v), g)
         if k2.launches != before + 1:
-            raise AssertionError("K2's function did not launch K2")
+            raise AssertionError("K2's op did not launch K2")
         torch.testing.assert_close(out.float(), want_out.float(),
                                    **TOL[dname])
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         t_fn = fwd_bwd_ms(torch, ops.flash_attention, (q, k, v), (g,))
         t_plain = fwd_bwd_ms(torch, ref.flash_attention_ref, (q, k, v), (g,))
-        report[("K2", B, S, dname)] = (t_fn, t_plain)
+        # SDPA at the shapes the kernels line reports (bf16) only
+        t_sdpa = sdpa_ms(torch, q, k, v, g) if dname == "bfloat16" \
+            else None
+        bound = training_bounds("K2", (B, S, H, KV, hd), q.element_size(),
+                                bandwidth, sfu)
+        report[("K2", B, S, dname)] = (t_fn, t_plain, t_sdpa, bound)
         log(f"[grad] K2 B {B} S {S} H {H} KV {KV} hd {hd} {dname}: forward "
             f"within tolerance, dq/dk/dv equal to the plain version's "
             f"autograd; forward {t_fn[0]:.3f} ms, forward + recompute "
             f"backward {t_fn[1]:.3f} ms (backward {t_fn[1] - t_fn[0]:.3f} "
             f"ms); plain forward {t_plain[0]:.3f} ms, plain forward + "
-            f"backward {t_plain[1]:.3f} ms")
+            f"backward {t_plain[1]:.3f} ms; "
+            + (f"SDPA (is_causal, enable_gqa) forward {t_sdpa[0]:.4f} ms, "
+               f"forward + backward {t_sdpa[1]:.4f} ms; " if t_sdpa else "")
+            + f"forward + backward bound {bound[0]:.4f} ms ({bound[1]})")
     for B, S, d, N in ((2, 16, 512, 16), (2, 64, 512, 16)):
         xc, dt = (torch.randn(B, S, d, generator=gen, device="cuda")
                   * s for s in (1.0, 0.05))
@@ -4500,24 +4546,26 @@ def kernel_gradients(torch):
         wy, wh = ref.selective_scan_ref(*inputs)
         want = torch.autograd.grad((wy, wh), inputs, (gy, gh))
         if k3.launches != before + 1:
-            raise AssertionError("K3's function did not launch K3")
+            raise AssertionError("K3's op did not launch K3")
         torch.testing.assert_close(y, wy, **SCAN_TOL)
         torch.testing.assert_close(h, wh, **SCAN_TOL)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         t_fn = fwd_bwd_ms(torch, ops.selective_scan, inputs, (gy, gh))
         t_plain = fwd_bwd_ms(torch, ref.selective_scan_ref, inputs, (gy, gh))
-        report[("K3", B, S, "float32")] = (t_fn, t_plain)
+        bound = training_bounds("K3", (B, S, d, N), 4, bandwidth, sfu)
+        report[("K3", B, S, "float32")] = (t_fn, t_plain, None, bound)
         log(f"[grad] K3 B {B} S {S} d {d} N {N} float32: y and h_last within "
             f"tolerance, all six gradients equal to the plain version's "
             f"autograd; forward {t_fn[0]:.3f} ms, forward + recompute "
             f"backward {t_fn[1]:.3f} ms (backward {t_fn[1] - t_fn[0]:.3f} "
             f"ms); plain forward {t_plain[0]:.3f} ms, plain forward + "
-            f"backward {t_plain[1]:.3f} ms")
+            f"backward {t_plain[1]:.3f} ms; forward + backward bound "
+            f"{bound[0]:.4f} ms ({bound[1]})")
     return report
 
 
-def training(torch, bandwidth):
+def training(torch, bandwidth, sfu):
     """Phase 9: (a) xLSTM-125M, (b) Llama-3.2-1B training at full width,
     (c) every reduced configuration card = CPU and K2/K3 under autograd;
     returns the launches on the phase's paths and K1's row at the Llama
@@ -4540,7 +4588,7 @@ def training(torch, bandwidth):
     log(f"[kernel] phase 9 gave K1 {len(shapes) + 1} shapes: the Llama "
         f"round's (held above) and {shapes}, each held against the plain "
         f"version now (worst |kernel - plain| {worst:.3e})")
-    grads = kernel_gradients(torch)
+    grads = kernel_gradients(torch, bandwidth, sfu)
     k1 = k1_xlstm + k1_llama + reduced[0]
     log(f"[train] phase 9 in {time.perf_counter() - t0:.1f} s; launches on "
         f"its paths: K1 {k1} (xLSTM {k1_xlstm}, Llama {k1_llama}, reduced "
@@ -4548,6 +4596,151 @@ def training(torch, bandwidth):
         f"reduced {reduced[1]}), K3 {reduced[2]} (reduced)")
     return {"K1": k1, "K2": k2_llama + reduced[1], "K3": reduced[2],
             "k1_row": k1_row, "grads": grads}
+
+
+#: phase 10's dry runs on fabricated worlds, on the card's host: one
+#: program of each kind on the 16×16 mesh, one on the 2×16×16 mesh, one
+#: process a mesh (--batch; --no-probe: the probes would triple them)
+PHASE10_DRYRUNS = (("llama3.2-1b", "train_4k", False),
+                   ("llama3.2-1b", "prefill_32k", False),
+                   ("llama3.2-1b", "decode_32k", False),
+                   ("xlstm-125m", "decode_32k", True))
+
+
+def one_card_check(cfg, lo, hi):
+    """Phase 10 (a): the one-rank prediction of Llama-3.2-1B's three
+    programs against the same programs on the card, in a new process, and
+    each program's outputs against the same program's on plain copies of
+    its arguments; returns the record and K1's and K2's launches."""
+    from repro_torch.launch import dryrun
+
+    out = dryrun.fresh_check_one_card(LLAMA)
+    k1 = sum(rec["measured"]["k1_launches"] for rec in out.values())
+    k2 = sum(rec["measured"]["k2_launches"] for rec in out.values())
+    record = {}
+    for tag, rec in out.items():
+        p, m = rec["predicted"], rec["measured"]
+        args_p = p["memory"]["argument_allocated_bytes"]
+        temp_p = p["memory"]["temp_size_in_bytes"]
+        ratio = m["peak_temp_bytes"] / temp_p
+        log(f"[launch] {LLAMA} {tag} on one rank: predicted args {args_p} "
+            f"B, temp {temp_p} B (cuBLAS workspaces "
+            f"{p['memory']['cublas_workspace_bytes']} B of it), "
+            f"{p['cost']['flops']} FLOPs; the card args "
+            f"{m['allocated_args']} B, peak temp {m['peak_temp_bytes']} B "
+            f"(measured / predicted {ratio:.4f}, limit {lo}-{hi}), "
+            f"{m['cost']['flops']} FLOPs, {m['seconds'] * 1e3:.1f} ms; "
+            f"output {m['out']}; against the program on plain tensors "
+            f"{m['plain']}")
+        if m["allocated_args"] != args_p:
+            raise AssertionError(f"{tag}: argument bytes {m['allocated_args']}"
+                                 f" on the card, {args_p} predicted")
+        if m["cost"]["flops"] != p["cost"]["flops"]:
+            raise AssertionError(f"{tag}: {m['cost']['flops']} FLOPs on the "
+                                 f"card, {p['cost']['flops']} predicted")
+        if not lo <= ratio <= hi:
+            raise AssertionError(f"{tag}: peak temp measured / predicted "
+                                 f"{ratio:.4f} outside {lo}-{hi}")
+        ints = m["out"]["int_range"]
+        if not m["out"]["finite"] or not 0 <= ints[0] <= ints[1] < cfg.vocab:
+            raise AssertionError(f"{tag}: malformed output {m['out']}")
+        if not m["plain"]["within"]:
+            raise AssertionError(f"{tag}: the 1x1-mesh program and the plain "
+                                 f"one disagree: {m['plain']}")
+        record[tag] = {"args_bytes": args_p, "flops": p["cost"]["flops"],
+                       "temp_predicted": temp_p,
+                       "temp_measured": m["peak_temp_bytes"],
+                       "cublas_workspace_bytes":
+                           p["memory"]["cublas_workspace_bytes"],
+                       "ratio": ratio, "ms": m["seconds"] * 1e3,
+                       "against_plain": m["plain"]}
+    want = cfg.n_layers * (1 + TRAIN_K)     # prefill + K clients' forwards
+    if k2 != want:
+        raise AssertionError(f"K2 launched {k2} times in phase 10 (a), "
+                             f"expected {want}")
+    if k1 != 1:                  # the training round's one bf16 row
+        raise AssertionError(f"K1 launched {k1} times in phase 10 (a), "
+                             f"expected 1")
+    return record, k1, k2
+
+
+def launch_layer(torch):
+    """Phase 10: the launch layer.  (a) The dry run on a world of one rank
+    (a 1×1 mesh on the card) predicts three Llama-3.2-1B programs (prefill
+    at B 4 × S 1024, one decode token for B 4 against a full cache of
+    1,056, the training round at K 4, B 2, S 64; bf16, full width) and the
+    same programs run on the card, in a new process whose allocator starts
+    empty (``dryrun.fresh_check_one_card``): argument bytes = the
+    allocator's (exactly: ``dryrun.allocator_bytes``), FLOPs =
+    ``FlopCounterMode``'s on the card (exactly; K2 by its formula), peak
+    temporary bytes (the cuBLAS workspaces of the program's threads
+    included) measured over predicted inside ``dryrun.PEAK_RATIO_LIMIT``;
+    outputs finite, tokens in range, and equal to the same program's on
+    plain copies of its arguments (tokens exactly, floats within
+    ``assert_close``'s defaults).  The training round is ``fl_train_step``
+    itself, eq. 3 through K1.  (b) Dry runs on fabricated worlds of 256
+    and 512 ranks on the card's host, one ``python -m
+    repro_torch.launch.dryrun --batch`` process a mesh, run alongside
+    (a)."""
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cfg = get(LLAMA)
+    lo, hi = dryrun.PEAK_RATIO_LIMIT
+    runs = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        # (b) first, on the host's CPU while (a) runs on the card: one
+        # process a mesh (torch 2.11 cannot open a second fake world in a
+        # process), each running its combinations one after another
+        procs = {multi: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--no-probe",
+             "--out", out_dir, "--batch", json.dumps(
+                 [c for c in PHASE10_DRYRUNS if c[2] == multi])],
+            env=dict(os.environ, PYTHONPATH=str(SRC)), text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for multi in sorted({c[2] for c in PHASE10_DRYRUNS})}
+        try:
+            record, k1, k2 = one_card_check(cfg, lo, hi)
+        except BaseException:
+            for proc in procs.values():
+                proc.kill()
+                proc.communicate()
+            raise
+        t1 = time.perf_counter()
+        texts = {multi: proc.communicate()[0]
+                 for multi, proc in procs.items()}
+        for arch, shape, multi in PHASE10_DRYRUNS:
+            proc, text = procs[multi], texts[multi]
+            mesh = "2x16x16" if multi else "16x16"
+            path = os.path.join(out_dir, f"{arch}_{shape}_{mesh}.json")
+            rec = {}
+            if os.path.exists(path):
+                with open(path) as f:
+                    rec = json.load(f)
+            if proc.returncode != 0 or rec.get("status") != "ok":
+                raise AssertionError(f"dry run {arch} x {shape} x {mesh} "
+                                     f"failed:\n{text[-2000:]}\n"
+                                     f"{rec.get('traceback', '')}")
+            runs.append({"arch": arch, "shape": shape, "mesh": mesh,
+                         "run_s": rec["run_s"], "flops": rec["cost"]["flops"],
+                         "collective_bytes":
+                             rec["collectives"]["total_bytes"]})
+            log(f"[launch] dry run {arch} x {shape} x {mesh} on "
+                f"{rec['devices']} fabricated ranks (torch "
+                f"{torch.__version__}): {rec['status']}, build "
+                f"{rec['build_s']} s, run {rec['run_s']} s, "
+                f"{rec['cost']['flops']:.4e} FLOPs/device, args "
+                f"{rec['memory']['argument_size_in_bytes']:.4e} B, temp "
+                f"{rec['memory']['temp_size_in_bytes']:.4e} B, collectives "
+                f"{rec['collectives']['counts']}")
+    log(f"[launch] phase 10 in {time.perf_counter() - t0:.1f} s (one card "
+        f"{t1 - t0:.1f} s; the fabricated worlds, run alongside, done "
+        f"{time.perf_counter() - t1:.1f} s after); K1 launches={k1} (the "
+        f"round's bf16 row), K2 launches={k2} (= {cfg.n_layers} x "
+        f"(1 + {TRAIN_K}))")
+    return {"k1_launches": k1, "launches": k2, "one_card": record,
+            "dry_runs": runs}
 
 
 def main() -> int:
@@ -4613,8 +4806,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     jamba_card_vs_cpu(torch)
     torch.cuda.empty_cache()
-    train = training(torch, bandwidth)
+    train = training(torch, bandwidth, sfu)
+    torch.cuda.empty_cache()
+    launch = launch_layer(torch)
     k2_train = train["grads"][("K2", 2, 64, "bfloat16")]
+    k2_train_1024 = train["grads"][("K2", 2, 1024, "bfloat16")]
     k3_train = train["grads"][("K3", 2, 16, "float32")]
     kernels = {"kernels": [{
         "name": "fl_aggregate",
@@ -4630,6 +4826,7 @@ def main() -> int:
         "max_abs_err": max_err,
         **timing[("plain", K, MAIN_M, "float32")],
         "phase_9": {**train["k1_row"], "launches": train["K1"]},
+        "phase_10": {"launches": launch["k1_launches"]},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -4642,7 +4839,22 @@ def main() -> int:
                     "shape": "B 2 S 64 H 32 KV 8 hd 64 bfloat16",
                     "forward_ms": k2_train[0][0],
                     "forward_recompute_backward_ms": k2_train[0][1],
-                    "plain_forward_backward_ms": k2_train[1][1]},
+                    "plain_forward_backward_ms": k2_train[1][1],
+                    "sdpa_forward_ms": k2_train[2][0],
+                    "sdpa_forward_backward_ms": k2_train[2][1],
+                    "forward_backward_bound_ms": k2_train[3][0],
+                    "forward_backward_bound_by": k2_train[3][1],
+                    "s1024": {
+                        "forward_ms": k2_train_1024[0][0],
+                        "forward_recompute_backward_ms":
+                            k2_train_1024[0][1],
+                        "plain_forward_backward_ms": k2_train_1024[1][1],
+                        "sdpa_forward_ms": k2_train_1024[2][0],
+                        "sdpa_forward_backward_ms": k2_train_1024[2][1],
+                        "forward_backward_bound_ms": k2_train_1024[3][0],
+                        "forward_backward_bound_by": k2_train_1024[3][1]}},
+        "phase_10": {key: value for key, value in launch.items()
+                     if key != "k1_launches"},
     }, {
         "name": "selective_scan",
         "route": "cuda",
@@ -4655,7 +4867,9 @@ def main() -> int:
                     "shape": "B 2 S 16 d 512 N 16 float32",
                     "forward_ms": k3_train[0][0],
                     "forward_recompute_backward_ms": k3_train[0][1],
-                    "plain_forward_backward_ms": k3_train[1][1]},
+                    "plain_forward_backward_ms": k3_train[1][1],
+                    "forward_backward_bound_ms": k3_train[3][0],
+                    "forward_backward_bound_by": k3_train[3][1]},
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; K1 timings "
         f"at R={K}, M={MAIN_M} fp32 (L2 dirty) and, in phase_9, at the "

@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from .. import random as jr
+from .. import resolve_device
 
 LN2 = 0.6931471805599453
 
@@ -60,12 +61,19 @@ def sample_positions(key: torch.Tensor, cfg: CellConfig,
     return torch.sqrt(u * (r_max**2 - r_min**2) + r_min**2)
 
 
+def sample_fading(key: torch.Tensor, shape: tuple[int, ...],
+                  device=None) -> torch.Tensor:
+    """Rayleigh block fading: exponential(1) power gain (``device=None``:
+    the card)."""
+    return jr.exponential(key, shape, device=resolve_device(device))
+
+
 def channel_gains(key: torch.Tensor, dist_m: torch.Tensor,
                   num_rounds: int) -> torch.Tensor:
     """``h_{k,t}`` ``[num_rounds, K]``: path gain × i.i.d. Rayleigh fading
     (exponential(1) power gain) per round, on ``dist_m``'s device."""
-    fading = jr.exponential(key, (num_rounds, dist_m.shape[0]),
-                            device=dist_m.device)
+    fading = sample_fading(key, (num_rounds, dist_m.shape[0]),
+                           device=dist_m.device)
     return fading * path_gain(dist_m)[None, :]
 
 
@@ -76,3 +84,21 @@ def rate_nats(w: torch.Tensor, h: torch.Tensor, P: float, W: float,
     w_safe = torch.clamp(w, min=1e-12)
     snr = P * h / (w_safe * W * N0)
     return w_safe * W * torch.log1p(snr)
+
+
+def rate_bits(w: torch.Tensor, h: torch.Tensor, P: float, W: float,
+              N0: float) -> torch.Tensor:
+    """Achievable rate in bits/s (Shannon log2)."""
+    return rate_nats(w, h, P, W, N0) / LN2
+
+
+def tx_energy_j(p: torch.Tensor, w: torch.Tensor, h: torch.Tensor, P: float,
+                W: float, N0: float, S_nats: float) -> torch.Tensor:
+    """Expected per-client transmit energy (eq. 5 summand): ``p·P·S / R``.
+
+    Returns per-client energies; sum for E_t.  Where ``p`` is 0 the energy
+    is 0; where ``w`` is 0 and ``p > 0`` the rate is 0 and the energy
+    huge (the rate is clamped at 1e-30)."""
+    R = rate_nats(w, h, P, W, N0)
+    e = p * P * S_nats / torch.clamp(R, min=1e-30)
+    return torch.where(p <= 0.0, 0.0, e)

@@ -92,6 +92,17 @@ class FLState(NamedTuple):
     layout: ParamLayout
 
 
+def replicate(params, k: int):
+    """Each leaf of ``params`` (a tensor, or nested lists and dicts of
+    them) broadcast to ``[k, *shape]``: a view, as JAX's
+    ``broadcast_to``."""
+    if isinstance(params, torch.Tensor):
+        return params[None].expand(k, *params.shape)
+    if isinstance(params, dict):
+        return {n: replicate(v, k) for n, v in params.items()}
+    return type(params)(replicate(v, k) for v in params)
+
+
 def init_fl_state(params, num_clients: int, device=None) -> FLState:
     layout = ParamLayout.of(params)
     g = layout.flatten(params, device)

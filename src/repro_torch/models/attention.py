@@ -36,6 +36,7 @@ from .. import random as jr
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from . import pshard
 from .layers import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -97,9 +98,9 @@ def init_cache(cfg: ArchConfig, batch: int, capacity: int, dtype,
 def _qkv(p: Attention, cfg: ArchConfig, x, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p.wq).reshape(B, S, H, hd)
-    k = (x @ p.wk).reshape(B, S, KV, hd)
-    v = (x @ p.wv).reshape(B, S, KV, hd)
+    q = pshard.whole_heads(x @ p.wq, H).reshape(B, S, H, hd)
+    k = pshard.whole_heads(x @ p.wk, KV).reshape(B, S, KV, hd)
+    v = pshard.whole_heads(x @ p.wv, KV).reshape(B, S, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -112,7 +113,7 @@ def _gqa_scores(q, k, cfg: ArchConfig):
     """q [B,S,H,hd], k [B,T,KV,hd] → scores [B,KV,G,S,T] (G = H/KV)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    qg = q.reshape(B, S, KV, H // KV, hd)
+    qg = pshard.whole_heads(q, KV, dim=2).reshape(B, S, KV, H // KV, hd)
     scale = torch.sqrt(torch.tensor(hd, dtype=torch.float32))
     return torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) / scale
 
@@ -129,8 +130,10 @@ def _attend(scores, v, mask):
 def _full_attention(p: Attention, cfg: ArchConfig, x, positions):
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    out = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    return (out.reshape(B, S, -1).to(x.dtype) @ p.wo).to(x.dtype), k, v
+    out = ops.flash_attention(q, *pshard.gqa_heads(q, k, v), causal=True,
+                              window=cfg.sliding_window)
+    out = pshard.whole_heads(out.reshape(B, S, -1), cfg.n_heads)
+    return (out.to(x.dtype) @ p.wo).to(x.dtype), k, v
 
 
 def attn_forward(p: Attention, cfg: ArchConfig, x, positions):
@@ -143,9 +146,11 @@ def attn_prefill(p: Attention, cfg: ArchConfig, x, positions, capacity: int):
     S = x.shape[1]
     y, k, v = _full_attention(p, cfg, x, positions)
     if capacity >= S:
-        pad = (0, 0, 0, 0, 0, capacity - S)
-        ck = torch.nn.functional.pad(k, pad)
-        cv = torch.nn.functional.pad(v, pad)
+        # zeros after the prompt (a concatenation: DTensor's ``pad`` fails
+        # on some PyTorch releases)
+        B, _, KV, hd = k.shape
+        ck = torch.cat([k, k.new_zeros(B, capacity - S, KV, hd)], dim=1)
+        cv = torch.cat([v, v.new_zeros(B, capacity - S, KV, hd)], dim=1)
     else:  # keep the most recent window
         ck, cv = k[:, S - capacity:].clone(), v[:, S - capacity:].clone()
     return y, KVCache(k=ck, v=cv, pos=S)
@@ -160,11 +165,13 @@ def attn_decode(p: Attention, cfg: ArchConfig, x, cache: KVCache):
                            device=x.device)
     q, k, v = _qkv(p, cfg, x, positions)
     slot = cache.pos % C                                   # ring slot
-    cache.k[:, slot] = k[:, 0]
-    cache.v[:, slot] = v[:, 0]
+    pshard.write_slot(cache.k, slot, k[:, 0])
+    pshard.write_slot(cache.v, slot, v[:, 0])
     scores = _gqa_scores(q, cache.k, cfg)                  # [B,KV,G,1,C]
     valid = torch.arange(C, device=x.device) <= min(cache.pos, C - 1)
     out = _attend(scores, cache.v, valid)                  # all once pos ≥ C
-    # float32 @ the weight's dtype promotes to float32 in JAX
-    y = (out.reshape(B, 1, -1) @ p.wo.float()).to(x.dtype)
+    # float32 @ the weight's dtype promotes to float32 in JAX; one 2-D
+    # product, as matmul folds it on a plain tensor (on a DTensor matmul
+    # would broadcast the weight into a batched product of another order)
+    y = (out.reshape(B, -1) @ p.wo.float()).to(x.dtype).reshape(B, 1, -1)
     return y, KVCache(k=cache.k, v=cache.v, pos=cache.pos + 1)

@@ -15,6 +15,12 @@ tensor code, as in JAX.
 Weights keep JAX's ``[n_in, n_out]`` layout and dtypes: ``dt_proj``,
 ``dt_bias``, ``A_log`` and ``D`` are float32, the rest the model's dtype.
 Cache: (conv tail ``[B, k-1, di]``, ssm state ``[B, di, N]`` float32).
+
+The activation-sharding hints (:mod:`.pshard`) sit where JAX's do on the
+tensors the port has: the input projection, the conv output and the scan
+output (JAX ``mamba.py:104,107,133``).  JAX's hints on the chunk's
+``[B, c, di, N]`` terms and the carried state (``:122,123,131``) have no
+tensor here: K3 takes the whole sequence and keeps them inside.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from .layers import dense_init
+from .pshard import settle, shard_last
 
 
 class MambaCache(NamedTuple):
@@ -109,7 +116,7 @@ def _ssm_inputs(p: Mamba, cfg: ArchConfig, xc):
     """xc: [B,S,di] post-conv activations → (dt [B,S,di], B [B,S,N],
     C [B,S,N], A [di,N]), all float32."""
     _, dt_rank, N, _ = _dims(cfg)
-    proj = (xc @ p.x_proj).float()
+    proj = settle((xc @ p.x_proj).float())     # its partial sums, reduced
     dt_in, Bc, Cc = proj.split([dt_rank, N, N], dim=-1)
     dt = softplus(dt_in @ p.dt_proj + p.dt_bias)
     return dt, Bc, Cc, -torch.exp(p.A_log)
@@ -120,8 +127,9 @@ def _conv(p: Mamba, x, cfg: ArchConfig, tail=None):
     The taps are summed in the model dtype in JAX's order, then the bias is
     added and silu applied.  Returns (out, the new tail)."""
     k = cfg.ssm_conv
-    if tail is None:
-        xp = F.pad(x, (0, 0, k - 1, 0))                     # [B,S+k-1,di]
+    if tail is None:                                    # zeros before x
+        xp = torch.cat([x.new_zeros(x.shape[0], k - 1, x.shape[2]), x],
+                       dim=1)                           # [B,S+k-1,di]
     else:
         xp = torch.cat([tail, x], dim=1)
     S = x.shape[1]
@@ -131,11 +139,12 @@ def _conv(p: Mamba, x, cfg: ArchConfig, tail=None):
 
 def mamba_forward(p: Mamba, cfg: ArchConfig, x, return_cache: bool = False):
     """x: [B,S,d] → y [B,S,d] (+ a :class:`MambaCache` for decode)."""
-    xin, z = (x @ p.in_proj).chunk(2, dim=-1)
+    xin, z = shard_last(x @ p.in_proj).chunk(2, dim=-1)
     xc, tail = _conv(p, xin, cfg)
+    xc = shard_last(xc)
     dt, Bc, Cc, A = _ssm_inputs(p, cfg, xc)
     y, h_last = ops.selective_scan(xc, dt, Bc, Cc, A, p.D)
-    out = (y.to(x.dtype) * F.silu(z)) @ p.out_proj
+    out = (shard_last(y).to(x.dtype) * F.silu(z)) @ p.out_proj
     if return_cache:
         return out, MambaCache(conv=tail, ssm=h_last)
     return out

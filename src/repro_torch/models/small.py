@@ -57,6 +57,12 @@ def mlp_logits(params, x: torch.Tensor) -> torch.Tensor:
     return x @ last["w"] + last["b"].unsqueeze(-2)
 
 
+def mlp_size_bits(params) -> int:
+    """The model's size in bits: its elements at 32 bits each (JAX's sum
+    over the tree's leaves; ``params`` a list of layer dicts)."""
+    return sum(t.numel() for layer in params for t in layer.values()) * 32
+
+
 def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood over the batch axis (the last one)."""
     logp = torch.log_softmax(logits, dim=-1)

@@ -23,8 +23,8 @@ The parameters are built with ``requires_grad=False``, so inference builds
 no graph.  Training differentiates :func:`loss` through
 ``torch.func.functional_call`` with tensors that do require gradients in
 place of the parameters (``fl/distributed.py`` hands it per-layer views of
-a flat row); K2 and K3 then run through their autograd functions
-(``kernels/ops.py``).
+a flat row); K2 and K3 then run through their custom ops, whose backward
+recomputes the plain version (``kernels/ops.py``).
 """
 from __future__ import annotations
 
@@ -35,7 +35,9 @@ from .. import random as jr
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from . import attention, mamba, moe, xlstm
+from .costmode import cost_mode
 from .layers import dense_init, init_swiglu, rms_norm, swiglu
+from .pshard import replicate_over, settle, shard_dim, shard_last
 
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 
@@ -86,7 +88,13 @@ _CACHE_INIT = {"mamba": mamba.init_mamba_cache,
 
 class Block(nn.Module):
     """One layer: ``x + mixer(rms_norm(x))``, then ``+ ffn(rms_norm(x))``
-    when the layer has an FFN (JAX's ``_apply_layer``)."""
+    when the layer has an FFN (JAX's ``_apply_layer``).  On DTensors, the
+    residual is replicated over "model" as the layer starts (a sequence
+    split there by the hint at super-block boundaries is gathered), and
+    the row-parallel projections' pending sums are reduced before each
+    residual add: Megatron's layout.  GSPMD may keep the residual split
+    and reduce-scatter instead; DTensor cannot take the gradient of a
+    projection whose tokens are split along the flattened sequence."""
 
     def __init__(self, cfg: ArchConfig, mixer: str, ffn: str, dtype,
                  device=None):
@@ -123,16 +131,17 @@ class Block(nn.Module):
         """Returns ``(x, new_cache, aux)``; ``aux`` is None unless the
         layer's FFN is MoE."""
         cfg = self.cfg
+        x = replicate_over(x)       # a sequence-sharded carry is read whole
         y, new_cache = self._mix(rms_norm(x, self.ln1, cfg.norm_eps),
                                  positions, mode, cache, capacity)
-        x = x + y
+        x = x + settle(y)
         aux = None
         if self.ffn_kind == "dense":
-            x = x + self.ffn(rms_norm(x, self.ln2, cfg.norm_eps))
+            x = x + settle(self.ffn(rms_norm(x, self.ln2, cfg.norm_eps)))
         elif self.ffn_kind == "moe":
             y, aux = moe.moe_forward(self.ffn, cfg,
                                      rms_norm(x, self.ln2, cfg.norm_eps))
-            x = x + y
+            x = x + settle(y)
         return x, new_cache, aux
 
 
@@ -228,7 +237,9 @@ def init_caches(cfg: ArchConfig, batch: int, capacity: int, dtype=None,
 def _embed(model: Transformer, tokens=None, embeds=None):
     if embeds is not None:
         return embeds.to(model.embed.dtype)
-    return model.embed[tokens.long()]
+    # a row gather (the same values as indexing), which DTensor shards
+    # vocab-parallel over a vocab-split table
+    return settle(torch.nn.functional.embedding(tokens.long(), model.embed))
 
 
 def _logits(model: Transformer, x):
@@ -247,8 +258,13 @@ def forward_hidden(model: Transformer, tokens=None, embeds=None):
     x = _embed(model, tokens, embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block in model.layers:
+    aux = x.new_zeros((), dtype=torch.float32)      # a DTensor on DTensors
+    sb = len(model.cfg.mixer_pattern)
+    for i, block in enumerate(model.layers):
+        if i % sb == 0 and not cost_mode():
+            # sequence parallelism at super-block boundaries, as JAX's scan
+            # body gives it (its unrolled cost-mode branch gives none)
+            x = shard_dim(x, -2, "model")
         x, _, a = block(x, positions)
         if a is not None:
             aux = aux + a
@@ -279,9 +295,9 @@ def loss(model: Transformer, batch: dict) -> torch.Tensor:
         x, aux = forward_hidden(model, tokens=tokens)
         x = x[:, :-1]
         targets = tokens[:, 1:]
-    logits = _logits(model, x)                          # [B,S',V] float32
+    logits = shard_last(_logits(model, x))              # [B,S',V] float32
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    tgt = settle(torch.gather(logits, -1, targets.long()[..., None]))[..., 0]
     ce = torch.mean(lse - tgt)
     moe_cfg = model.cfg.moe
     return ce + (moe_cfg.aux_loss_weight if moe_cfg is not None else 0.0) \

@@ -22,18 +22,23 @@ the rest the model's dtype.  No kernel: JAX has none for xLSTM either.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import random as jr
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..kernels.ops import _traced
+from .costmode import cost_mode
 from .layers import dense_init
 from .mamba import softplus
+from .pshard import whole_heads
 
 #: the stabilizer's starting value, as JAX's ``jnp.full(..., -1e30)``
 M_INIT = -1e30
@@ -98,9 +103,10 @@ def _mlstm_qkv(p: MLSTM, cfg: ArchConfig, x):
     B, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
-    q = (x @ p.wq).reshape(B, S, H, hd).float()
-    k = (x @ p.wk).reshape(B, S, H, hd).float() / _f32(math.sqrt(hd))
-    v = (x @ p.wv).reshape(B, S, H, hd).float()
+    q = whole_heads(x @ p.wq, H).reshape(B, S, H, hd).float()
+    k = whole_heads(x @ p.wk, H).reshape(B, S, H, hd).float() \
+        / _f32(math.sqrt(hd))
+    v = whole_heads(x @ p.wv, H).reshape(B, S, H, hd).float()
     x32 = x.float()
     return q, k, v, x32 @ p.wi, x32 @ p.wf          # gates [B,S,H] pre-act
 
@@ -146,15 +152,15 @@ def mlstm_forward(p: MLSTM, cfg: ArchConfig, x, return_cache: bool = False,
                   chunk: int = 256):
     """Chunkwise-parallel stabilized mLSTM: x [B,S,d] → y [B,S,d] (+ an
     :class:`MLSTMCache`).  Chunks of ``c = min(chunk, S)`` tokens, or one
-    chunk of ``S`` when ``c`` does not divide ``S`` (JAX's rule; its cost
-    probes' single-block mode has no counterpart here)."""
+    chunk of ``S`` when ``c`` does not divide ``S`` or under
+    ``costmode.cost_probe()`` (JAX's rule)."""
     B, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
     q, k, v, i_t, f_t = _mlstm_qkv(p, cfg, x)
     logf = -softplus(-f_t)                              # log σ(f̃)  [B,S,H]
     c = min(chunk, S)
-    if S % c != 0:
+    if S % c != 0 or cost_mode():
         c = S
     state = init_mlstm_cache(cfg, B, x.dtype, x.device)
     hs = []
@@ -164,7 +170,7 @@ def mlstm_forward(p: MLSTM, cfg: ArchConfig, x, return_cache: bool = False,
                                 i_t[:, blk], logf[:, blk], *state)
         hs.append(h)
     hsv = torch.cat(hs, dim=1)                          # [B,S,H,hd]
-    o = torch.sigmoid((x @ p.wog).float()).reshape(B, S, H, hd)
+    o = torch.sigmoid(whole_heads(x @ p.wog, H).float()).reshape(B, S, H, hd)
     y = (o * hsv).reshape(B, S, d).to(x.dtype) @ p.out
     if not return_cache:
         return y
@@ -201,7 +207,7 @@ def mlstm_decode(p: MLSTM, cfg: ArchConfig, x, cache: MLSTMCache):
     denom = torch.maximum(torch.einsum("bhx,bhx->bh", n, q).abs(),
                           torch.exp(-m_new))[..., None]
     hsv = torch.einsum("bhxy,bhy->bhx", C, q) / denom
-    o = torch.sigmoid((x @ p.wog).float()).reshape(B, H, hd)
+    o = torch.sigmoid(whole_heads(x @ p.wog, H).float()).reshape(B, H, hd)
     y = (o * hsv).reshape(B, 1, d).to(x.dtype) @ p.out
     return y, MLSTMCache(C=C, n=n, m=m_new)
 
@@ -262,7 +268,7 @@ def _slstm_step(p: SLSTM, cfg: ArchConfig, xw, cache: SLSTMCache):
     (each [B, d], float32) → the new cache."""
     B, d = cache.h.shape
     H = cfg.n_heads
-    hh = cache.h.reshape(B, H, d // H)
+    hh = whole_heads(cache.h, H).reshape(B, H, d // H)
 
     def pre(g, xg):
         rec = torch.einsum("bhx,hxy->bhy", hh, getattr(p, "r" + g))
@@ -286,20 +292,172 @@ def _input_projections(p: SLSTM, x):
     return [xf @ getattr(p, "w" + g) for g in GATES]
 
 
-def slstm_forward(p: SLSTM, cfg: ArchConfig, x, return_cache: bool = False):
-    """x: [B,S,d] → y [B,S,d] (+ the final :class:`SLSTMCache`): the true
-    nonlinear recurrence, one step per token."""
-    B, S, _ = x.shape
-    xw = _input_projections(p, x)                # 4 × [B,S,d]
-    cache = init_slstm_cache(cfg, B, x.dtype, x.device)
+def _slstm_scan(p, cfg: ArchConfig, xw: list, cache: SLSTMCache):
+    """The recurrence over the sequence → (h of every step ``[B,S,d]``,
+    the final cache)."""
     hs = []
-    for t in range(S):
+    for t in range(xw[0].shape[1]):
         cache = _slstm_step(p, cfg, [w[:, t] for w in xw], cache)
         hs.append(cache.h)
-    y = torch.stack(hs, dim=1).to(x.dtype) @ p.out
+    return torch.stack(hs, dim=1), cache
+
+
+_RB = tuple(n + g for n in "rb" for g in GATES)
+
+
+class _Weights:
+    """The recurrent weights and biases as attributes (``rz``, ``bz``,
+    ...), as :func:`_slstm_step` reads them."""
+
+    def __init__(self, tensors: dict):
+        self.__dict__.update(tensors)
+
+
+def _scan_plain(n_heads: int, xw: list, weights: list) -> tuple:
+    B, _, d = xw[0].shape
+    cfg = _HeadsOnly(n_heads)
+    zero = torch.zeros(B, d, dtype=torch.float32, device=xw[0].device)
+    cache = SLSTMCache(c=zero, n=torch.ones_like(zero), h=zero.clone(),
+                       m=zero.clone())
+    h, cache = _slstm_scan(_Weights(dict(zip(_RB, weights))), cfg, xw, cache)
+    return (h, *cache)
+
+
+class _HeadsOnly(NamedTuple):
+    n_heads: int
+
+
+@torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
+def slstm_scan_op(xz: torch.Tensor, xi: torch.Tensor, xf: torch.Tensor,
+                  xo: torch.Tensor, rz: torch.Tensor, ri: torch.Tensor,
+                  rf: torch.Tensor, ro: torch.Tensor, bz: torch.Tensor,
+                  bi: torch.Tensor, bf: torch.Tensor, bo: torch.Tensor,
+                  n_heads: int) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The sLSTM recurrence as one operation: the input projections ``x{g}
+    [B,S,d]`` and the recurrent weights and biases → ``(h [B,S,d], c, n,
+    h_last, m [B,d])``, float32; the same loop as the eager path."""
+    return _scan_plain(n_heads, [xz, xi, xf, xo],
+                       [rz, ri, rf, ro, bz, bi, bf, bo])
+
+
+@slstm_scan_op.register_fake
+def _(xz, xi, xf, xo, rz, ri, rf, ro, bz, bi, bf, bo, n_heads):
+    B, S, d = xz.shape
+    state = [xz.new_empty((B, d), dtype=torch.float32) for _ in range(4)]
+    return (xz.new_empty((B, S, d), dtype=torch.float32), *state)
+
+
+_Grads12 = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                 torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                 torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op("repro_torch::slstm_scan_backward",
+                         mutates_args=())
+def slstm_scan_backward(xz: torch.Tensor, xi: torch.Tensor,
+                        xf: torch.Tensor, xo: torch.Tensor, rz: torch.Tensor,
+                        ri: torch.Tensor, rf: torch.Tensor, ro: torch.Tensor,
+                        bz: torch.Tensor, bi: torch.Tensor, bf: torch.Tensor,
+                        bo: torch.Tensor, g_h: torch.Tensor,
+                        g_c: torch.Tensor, g_n: torch.Tensor,
+                        g_last: torch.Tensor, g_m: torch.Tensor,
+                        n_heads: int) -> _Grads12:
+    """The recurrence's backward: the loop recomputed under autograd and
+    differentiated against the outputs' gradients → the 12 inputs'."""
+    return _slstm_grads(xz, xi, xf, xo, rz, ri, rf, ro, bz, bi, bf, bo, g_h,
+                        g_c, g_n, g_last, g_m, n_heads)
+
+
+def _slstm_grads(*args) -> tuple:
+    from ..kernels.ops import _recompute_grads
+    *tensors, n_heads = args
+
+    def plain(*t):
+        return _scan_plain(n_heads, list(t[:4]), list(t[4:]))
+    return _recompute_grads(plain, tuple(tensors[:12]), tuple(tensors[12:]))
+
+
+@slstm_scan_backward.register_fake
+def _(*args):
+    from ..kernels.ops import _fake_recompute
+    _fake_recompute(_slstm_grads, args)
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in args[:12])
+
+
+def _scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:12])
+    ctx.n_heads = inputs[12]
+
+
+def _scan_grad(ctx, *grads):
+    return (*slstm_scan_backward(*ctx.saved_tensors, *grads, ctx.n_heads),
+            None)
+
+
+slstm_scan_op.register_autograd(_scan_grad, setup_context=_scan_setup)
+
+
+def slstm_scan_flops(B: int, S: int, d: int, n_heads: int) -> int:
+    """The recurrence's matmul FLOPs: four per-head ``[hd] × [hd, hd]``
+    products a step, ``8 · B · d · hd · S``."""
+    return 8 * B * d * (d // n_heads) * S
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan)
+def _(xz_shape, *args, n_heads=None, **kwargs) -> int:
+    B, S, d = xz_shape
+    return slstm_scan_flops(B, S, d, args[-1] if n_heads is None else n_heads)
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)
+def _(xz_shape, *args, **kwargs) -> int:
+    # the recompute: the forward's products and their two gradients
+    B, S, d = xz_shape
+    return 3 * slstm_scan_flops(B, S, d, args[-1])
+
+
+def slstm_forward(p: SLSTM, cfg: ArchConfig, x, return_cache: bool = False):
+    """x: [B,S,d] → y [B,S,d] (+ the final :class:`SLSTMCache`): the true
+    nonlinear recurrence, one step per token.  Under a dispatch mode or on
+    DTensors (the dry run) the recurrence is one custom op
+    (``repro_torch::slstm_scan``: the same loop, a fake implementation, a
+    FLOP formula, a batch-split sharding rule and a recompute backward),
+    which a fake run sees as one operation instead of ~100 a token."""
+    xw = _input_projections(p, x)                # 4 × [B,S,d]
+    weights = [getattr(p, n) for n in _RB]
+    if _traced(*xw):
+        h, *state = slstm_scan_op(*xw, *weights, cfg.n_heads)
+    else:
+        h, *state = _scan_plain(cfg.n_heads, xw, weights)
+    y = h.to(x.dtype) @ p.out
     if return_cache:
-        return y, cache
+        return y, SLSTMCache(*state)
     return y
+
+
+@functools.lru_cache(maxsize=1)
+def register_sharding_rules() -> None:
+    """The sLSTM scan's DTensor sharding: the batch over any mesh dim
+    (the weights whole, their gradients partial sums), or all
+    replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    r, s0 = Replicate(), Shard(0)
+
+    @register_sharding(torch.ops.repro_torch.slstm_scan.default)
+    def _(*args):
+        return [([r] * 5, [r] * 12 + [None]),
+                ([s0] * 5, [s0] * 4 + [r] * 8 + [None])]
+
+    @register_sharding(torch.ops.repro_torch.slstm_scan_backward.default)
+    def _(*args):
+        return [([r] * 12, [r] * 17 + [None]),
+                ([s0] * 4 + [Partial()] * 8,
+                 [s0] * 4 + [r] * 8 + [s0] * 5 + [None])]
 
 
 def slstm_decode(p: SLSTM, cfg: ArchConfig, x, cache: SLSTMCache):

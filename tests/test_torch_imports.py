@@ -41,6 +41,7 @@ def test_the_check_sees_the_whole_port():
             "selection.py", "sparse.py", "device.py", "schemes.py",
             "server.py", "replay.py", "train.py", "batcher.py", "loadgen.py",
             "quickstart_torch.py", "mnist_fl_schemes_torch.py",
-            "cnn_sensitivity.py"} <= names
+            "cnn_sensitivity.py", "mesh.py", "sharding.py", "specs.py",
+            "dryrun.py", "costmode.py", "pshard.py"} <= names
     assert forbidden("jax.numpy") and forbidden("repro.fl")
     assert not forbidden("repro_torch.fl")

@@ -99,3 +99,38 @@ def test_decode_sized_batches_match_jax():
         got, aux = MoE.moe_forward(p, cfg, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(float(aux), float(waux), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("B,S,cf", [(2, 24, 1.25), (4, 300, 0.5),
+                                    (1, 2048, 0.25)])
+def test_expert_parallel_formulation_matches_scatter_and_jax(
+        name, B, S, cf, monkeypatch):
+    """The formulation the MoE takes on DTensors (``_expert_parallel``:
+    JAX's one-hot dispatch and combine contractions) on plain tensors,
+    where the sharding hints are the tensor itself: it equals the card's
+    scatter/gather formulation and JAX's ``moe_forward`` (output within
+    rtol 1e-4, the same tokens dropped, aux rtol 1e-6)."""
+    jcfg, cfg = cfgs(name, capacity_factor=cf)
+    params, p = converted(jcfg, cfg, seed=S)
+    x = np.random.default_rng(S).standard_normal(
+        (B, S, jcfg.d_model)).astype(np.float32)
+    want, waux = JMoE.moe_forward(params, jcfg, jnp.asarray(x))
+    calls = []
+    for name_, fn in (("_scatter_gather", MoE._scatter_gather),
+                      ("_expert_parallel", MoE._expert_parallel)):
+        monkeypatch.setattr(MoE, name_, lambda *a, fn=fn, n=name_: (
+            calls.append(n), fn(*a))[1])
+    with torch.inference_mode():
+        scatter, aux_s = MoE.moe_forward(p, cfg, torch.from_numpy(x))
+        monkeypatch.setattr(MoE, "is_dtensor", lambda t: True)
+        onehot, aux_o = MoE.moe_forward(p, cfg, torch.from_numpy(x))
+    assert calls == ["_scatter_gather", "_expert_parallel"]
+    for got, aux in ((onehot, aux_o), (scatter, aux_s)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(float(aux), float(waux), rtol=1e-6)
+    np.testing.assert_allclose(onehot.numpy(), scatter.numpy(), **TOL)
+    zero = [(t.abs().sum(-1) == 0).numpy() for t in (onehot, scatter)]
+    np.testing.assert_array_equal(zero[0], zero[1])
+    np.testing.assert_array_equal(zero[0],
+                                  np.abs(np.asarray(want)).sum(-1) == 0)

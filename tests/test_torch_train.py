@@ -371,10 +371,13 @@ def test_serve_batched_example_runs_xlstm(capsys):
 # ---------------------------------------------------------------------------
 
 def test_kernel_functions_backward_by_recompute(monkeypatch):
-    """The autograd functions that wrap K2 and K3 on the card, run here
-    with each kernel's plain version in its place: the forward is the
-    kernel's value and the gradients with respect to every input equal
-    autograd through the plain version (K3's ``h_last`` cotangent too)."""
+    """K2 and K3 under autograd, run here with each kernel's plain
+    version in the kernel's place: the custom ops (``repro_torch::
+    flash_attention``, ``::selective_scan``), which the dispatchers take
+    for every autograd call on a CUDA tensor.  Each forward is the plain
+    value and the gradients with respect to every input, through the
+    recompute backward, equal autograd through the plain version bit for
+    bit (K3's ``h_last`` cotangent too)."""
     monkeypatch.setattr(ops, "flash_attention_cuda", ref.flash_attention_ref)
     monkeypatch.setattr(ops, "selective_scan_cuda", ref.selective_scan_ref)
     rng = np.random.default_rng(0)
@@ -386,10 +389,10 @@ def test_kernel_functions_backward_by_recompute(monkeypatch):
     q, k, v = leaf(2, 9, 4, 64), leaf(2, 9, 2, 64), leaf(2, 9, 2, 64)
     g = torch.from_numpy(rng.standard_normal((2, 9, 4, 64))
                          .astype(np.float32))
-    out = ops._FlashAttention.apply(q, k, v, True, 4)
-    got = torch.autograd.grad(out, (q, k, v), g)
     want_out = ref.flash_attention_ref(q, k, v, causal=True, window=4)
     want = torch.autograd.grad(want_out, (q, k, v), g)
+    out = ops.flash_attention_op(q, k, v, True, 4)
+    got = torch.autograd.grad(out, (q, k, v), g)
     torch.testing.assert_close(out, want_out.detach(), rtol=0, atol=0)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -402,10 +405,10 @@ def test_kernel_functions_backward_by_recompute(monkeypatch):
     gy = torch.from_numpy(rng.standard_normal((2, 7, 5)).astype(np.float32))
     gh = torch.from_numpy(rng.standard_normal((2, 5, 8)).astype(np.float32))
     inputs = (xc, dt, Bm, Cm, A, D_)
-    y, h = ops._SelectiveScan.apply(*inputs)
-    got = torch.autograd.grad((y, h), inputs, (gy, gh))
     wy, wh = ref.selective_scan_ref(*inputs)
     want = torch.autograd.grad((wy, wh), inputs, (gy, gh))
+    y, h = ops.selective_scan_op(*inputs)
+    got = torch.autograd.grad((y, h), inputs, (gy, gh))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
