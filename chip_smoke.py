@@ -219,7 +219,16 @@ Phases, each reporting on its own lines:
    with K2 and K3 under autograd through their custom ops; then those ops'
    gradients against the plain versions' autograd on the same inputs and
    the recompute backward's cost (K2 at B 2 × S 64 and 1024, K3 at S 16 and
-   64).
+   64);
+10. launch layer — the dry run's one-rank prediction of Llama-3.2-1B's
+   prefill, decode and training round against the same programs on the
+   card, and four dry runs on fabricated worlds (``launch_layer``);
+11. client placement — the dense engine's client axis over 4 virtual
+   blocks of the card against the unplaced run at K 1,000 (the MLP at full
+   width, the device path, a random and an age-aware guarded run; eq. 3 =
+   4 K1 launches a round, subset or weighted mode), ms a round of both, and
+   with two or more cards ``make_runner``'s default over them
+   (``client_placement``).
 
 Float32 products run in full float32 on the card: TF32 is switched off for
 both cuBLAS matmuls and cuDNN, so card-against-CPU differences are summation
@@ -234,7 +243,8 @@ non-finite rows phase 3d's faulty runs reduced; the generate
 run of phase 5a for K2, that of phase 7a for K3) and its times at the main
 path's shape, and under ``phase_9`` its launches on the training paths
 (K1 also its times at the Llama round's shape; K2 and K3 the recompute
-backward's).
+backward's), under ``phase_10`` the launch layer's and, for K1, under
+``phase_11`` the placed and unplaced runs' launches by mode.
 """
 from __future__ import annotations
 
@@ -4743,6 +4753,229 @@ def launch_layer(torch):
             "dry_runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dense engine's client axis placed over several cards
+# ---------------------------------------------------------------------------
+
+PLACE_K, PLACE_T, PLACE_BLOCKS = 1_000, 12, 4
+PLACE_SEGMENT = 2 << 20    # a block's allocation rounds up at most this far
+
+
+@contextlib.contextmanager
+def placed_over(engine, devices):
+    """``make_runner`` places the client axis over ``devices`` (a repeated
+    card gives virtual blocks) where it would build JAX's mesh."""
+    from repro_torch.fl import ClientPlacement
+    rule = engine._client_mesh
+    engine._client_mesh = lambda k, device=None: ClientPlacement(
+        tuple(devices), k)
+    try:
+        yield
+    finally:
+        engine._client_mesh = rule
+
+
+def held_placed(np, torch, got, ref, label) -> float:
+    """A placed run against the unplaced one: masks, ``last_tx``, eval
+    rounds and energies bit for bit; accuracy, loss and the global, client
+    and anchor rows within the golden tolerance, NaN in the same places
+    (the rows compared on the card); returns the worst float as a share of
+    its tolerance."""
+    for field in ("participation", "eval_rounds", "energy_per_client",
+                  "energy_timeline"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(ref, field),
+                                      err_msg=f"{label}: {field}")
+    np.testing.assert_array_equal(got.state.last_tx.cpu().numpy(),
+                                  ref.state.last_tx.cpu().numpy())
+    st = got.state.gathered()
+    pairs = [(torch.from_numpy(got.test_acc), torch.from_numpy(ref.test_acc)),
+             (torch.from_numpy(got.test_loss),
+              torch.from_numpy(ref.test_loss))]
+    pairs += [(getattr(st, f), getattr(ref.state, f))
+              for f in ("global_params", "client_params", "anchor_params")]
+    worst = 0.0
+    for a, b in pairs:
+        nan = torch.isnan(b)
+        if not torch.equal(torch.isnan(a), nan):
+            raise AssertionError(f"{label}: NaN in other places")
+        share = torch.where(nan, 0.0, (a - b).abs()
+                            / (SLICE_ATOL + SLICE_RTOL * b.abs()))
+        worst = max(worst, float(share.max()) if share.numel() else 0.0)
+    if worst > 1.0:
+        raise AssertionError(f"{label}: placed differs from unplaced by "
+                             f"{worst:.3f} of rtol {SLICE_RTOL} atol "
+                             f"{SLICE_ATOL}")
+    return worst
+
+
+def client_placement(torch):
+    """Phase 11: the dense engine's client axis placed over cards (JAX's
+    ``shard_clients``).  (a) The paper's MLP at full width on phase 3c
+    (b)'s world (K 1,000, 8 examples a client, the device path, T 12 x L
+    5 x B 10, continuous mode): unplaced (``shard_clients=False``) and
+    placed over 4 virtual blocks of the one card, a random run (eq. 3 = 4
+    subset launches a round) and an age-aware run with the age aggregator
+    and quarantine (4 weighted launches a round), each placed run held to
+    its unplaced one; ms a round of warm runs in turns (unplaced, placed,
+    placed, unplaced); K1 held against its plain version at the placed
+    shapes.  (b) With two or more cards: ``make_runner``'s default over
+    them, held the same way, with each card's ``memory_allocated`` of the
+    client and anchor rows against 2·(K/d)·W·4 bytes.  Returns K1's
+    launches in the phase's runs by mode."""
+    import numpy as np
+
+    import repro_torch.fl.engine as engine
+    from repro_torch import random as jr
+    from repro_torch.core import CellConfig
+    from repro_torch.core.selection import AgeAwareScheme, RandomScheme
+    from repro_torch.data import Dataset
+    from repro_torch.fl import AggregatorConfig, GuardConfig, SimConfig
+    from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda as k1
+    from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
+
+    t_phase = time.perf_counter()
+    K, T = PLACE_K, PLACE_T
+    store, h = sweep_store(torch, K, "cuda")
+    h = h[:, :T]
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    test = Dataset(torch.randn(2048, 784, generator=gen, device="cuda"),
+                   torch.arange(2048, dtype=torch.int32, device="cuda") % 10,
+                   10)
+    params = init_mlp(jr.PRNGKey(4))
+    cell = CellConfig(num_clients=K)
+    base = dict(rounds=T, local_iters=5, batch_size=10, eval_every=4,
+                data_path="device")
+    runs = {"random": (RandomScheme(16 / K, K), SimConfig(**base)),
+            "age-aware+age+quarantine": (AgeAwareScheme(16, K), SimConfig(
+                **base, aggregator=AggregatorConfig(kind="age"),
+                guards=GuardConfig(quarantine=True)))}
+    blocks = [torch.device("cuda", torch.cuda.current_device())] \
+        * PLACE_BLOCKS
+    total = np.zeros(3, int)
+    k1.shapes.clear()
+
+    def build(policy, cfg, devices):
+        if devices is None:
+            return engine.make_runner(mlp_loss, mlp_accuracy, store, test,
+                                      policy, cell, cfg, shard_clients=False)
+        with placed_over(engine, devices):
+            return engine.make_runner(mlp_loss, mlp_accuracy, store, test,
+                                      policy, cell, cfg)
+
+    def run(runner, expect, label):
+        nonlocal total
+        zero_k1(k1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runner(params, h)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = k1_counts(k1)
+        if n != expect:
+            raise AssertionError(f"{label}: K1 launches (all, subset, "
+                                 f"weighted) {n}, not {expect}")
+        total += n
+        return out, 1e3 * wall / T
+
+    for name, (policy, cfg) in runs.items():
+        weighted = cfg.aggregator is not None
+        one = (T, 0, T) if weighted else (T, 0, 0)
+        many = ((PLACE_BLOCKS * T, 0, PLACE_BLOCKS * T) if weighted
+                else (PLACE_BLOCKS * T, PLACE_BLOCKS * T, 0))
+        runners = {"unplaced": (build(policy, cfg, None), one),
+                   "placed": (build(policy, cfg, blocks), many)}
+        ms = {"unplaced": [], "placed": []}
+        outs = {}
+        for which in ("unplaced", "placed", "placed", "unplaced",
+                      "placed", "unplaced"):
+            runner, expect = runners[which]
+            outs[which], t = run(runner, expect, f"{name} {which}")
+            ms[which].append(t)
+        placed_rows = outs["placed"].state.client_params
+        if len(placed_rows) != PLACE_BLOCKS or any(
+                b.shape[0] != K // PLACE_BLOCKS for b in placed_rows):
+            raise AssertionError(f"{name}: the client rows are not in "
+                                 f"{PLACE_BLOCKS} blocks of {K // PLACE_BLOCKS}")
+        worst = held_placed(np, torch, outs["placed"], outs["unplaced"],
+                            name)
+        if not np.isfinite(outs["placed"].test_acc).all():
+            raise AssertionError(f"{name}: non-finite accuracy")
+        log(f"[place] (a) {name}, K {K} x T {T} x L 5 x B 10, 784-200-10 "
+            f"MLP (W {MAIN_M}), device path: {PLACE_BLOCKS} virtual blocks "
+            f"= unplaced: masks, last_tx, eval rounds, energy bit for bit; "
+            f"acc, loss, global/client/anchor rows within rtol {SLICE_RTOL} "
+            f"atol {SLICE_ATOL} (worst {worst:.3f}); K1 launches a run "
+            f"(all, subset, weighted) unplaced {one}, placed {many}; warm "
+            f"ms a round (first run cold) unplaced "
+            f"{[round(v, 3) for v in ms['unplaced']]}, placed "
+            f"{[round(v, 3) for v in ms['placed']]}; final_acc "
+            f"{outs['placed'].test_acc[-1]:.4f}")
+        del runners, outs, placed_rows
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    seen = sorted(k1.shapes)
+    worst = max(check_case(torch, mode, dname, R, M, offset, gen)
+                for mode, dname, R, M in seen for offset in (0, 1))
+    log(f"[place] K1 at the placed shapes "
+        f"{', '.join(f'{m} {d} R {r} M {c}' for m, d, r, c in seen)} "
+        f"against its plain version at both alignments: worst "
+        f"|kernel - plain| {worst:.3e}")
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[place] (b) did not run: {cards} card visible; "
+            f"make_runner's default places the client axis only over two "
+            f"or more")
+    else:
+        policy, cfg = runs["random"]
+        place = engine._client_mesh(K)
+        d = len(place.devices)
+        unplaced_runner = build(policy, cfg, None)
+        runner = engine.make_runner(mlp_loss, mlp_accuracy, store, test,
+                                    policy, cell, cfg)
+        ms = {"unplaced": [], "placed": []}
+        for which in ("unplaced", "placed", "placed", "unplaced"):
+            if which == "unplaced":
+                ref, t = run(unplaced_runner, (T, 0, 0), "(b) unplaced")
+            else:
+                out, t = run(runner, (d * T, d * T, 0), "(b) placed")
+            ms[which].append(round(t, 3))
+        del unplaced_runner
+        rows = out.state.client_params
+        devices = [b.device for b in rows]
+        if len(set(devices)) != d or devices != [
+                torch.device(x) for x in place.devices]:
+            raise AssertionError(f"(b): rows on {devices}, not "
+                                 f"{place.devices}")
+        worst = held_placed(np, torch, out, ref, "(b)")
+        before = [torch.cuda.memory_allocated(x) for x in devices]
+        row_bytes = 2 * (K // d) * MAIN_M * 4
+        del out, rows
+        after = [torch.cuda.memory_allocated(x) for x in devices]
+        held = [b - a for b, a in zip(before, after)]
+        for x, n in zip(devices[1:], held[1:]):
+            if not row_bytes <= n <= row_bytes + 2 * PLACE_SEGMENT:
+                raise AssertionError(f"(b) {x}: the rows took {n} bytes, "
+                                     f"not 2 (K/d) W 4 = {row_bytes}")
+        log(f"[place] (b) make_runner's default over {d} of {cards} cards "
+            f"{[str(x) for x in devices]}: = unplaced (worst {worst:.3f}); "
+            f"K1 launches {d * T} a run (= {d} x T, subset); ms a round "
+            f"(first run cold) unplaced {ms['unplaced']}, placed "
+            f"{ms['placed']}; "
+            f"client + anchor rows on each card {held} bytes against "
+            f"2 (K/d) W 4 = {row_bytes} (the first card also holds the "
+            f"global row, the ledgers and the run's outputs)")
+        del runner
+    del store, h, test
+    torch.cuda.empty_cache()
+    log(f"[place] phase 11 in {time.perf_counter() - t_phase:.1f} s; K1 "
+        f"launches (all, subset, weighted) {tuple(int(v) for v in total)}")
+    return {"launches": int(total[0]),
+            "by_mode": {"plain": int(total[0] - total[1] - total[2]),
+                        "subset": int(total[1]), "weighted": int(total[2])}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4809,6 +5042,8 @@ def main() -> int:
     train = training(torch, bandwidth, sfu)
     torch.cuda.empty_cache()
     launch = launch_layer(torch)
+    torch.cuda.empty_cache()
+    placement = client_placement(torch)
     k2_train = train["grads"][("K2", 2, 64, "bfloat16")]
     k2_train_1024 = train["grads"][("K2", 2, 1024, "bfloat16")]
     k3_train = train["grads"][("K3", 2, 16, "float32")]
@@ -4827,6 +5062,7 @@ def main() -> int:
         **timing[("plain", K, MAIN_M, "float32")],
         "phase_9": {**train["k1_row"], "launches": train["K1"]},
         "phase_10": {"launches": launch["k1_launches"]},
+        "phase_11": placement,
     }, {
         "name": "flash_attention",
         "route": "cuda",

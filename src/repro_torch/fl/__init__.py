@@ -1,5 +1,5 @@
 """FL runtime: the eager simulation engine on the device, prestack and
-stream data paths, resumable checkpointed runs, the participant-centric
+stream data paths, its client axis placed over several cards, resumable checkpointed runs, the participant-centric
 sparse engine, the legacy host round loop, the fault processes, the
 aggregators (eq. 3, guarded, participant-subset and scheme-weighted) and
 the seed, scenario, fault and scheme matrices, each with the metrics taps
@@ -14,6 +14,7 @@ from .faults import (FaultConfig, FaultMatrixResult, FaultOutcome,
                      FaultParams, FaultState, GuardConfig, apply_faults,
                      corrupt_deltas, fault_key, init_fault_state,
                      run_fault_matrix, scale_params)
+from .placement import ClientPlacement, PlacedStore
 from .resume import (completed_segments, read_segment_manifest,
                      run_resumable, segment_bounds)
 from .schemes import (SchemeMatrixResult, SchemeSpec, default_scheme_panel,
@@ -23,7 +24,7 @@ from .sparse import (ParticipationTrace, build_participation_program,
                      build_sparse_train_program, make_sparse_runner,
                      resolve_participation, train_trace_count)
 from .state import (AggParams, AggregatorConfig, FLState, ParamLayout,
-                    broadcast_to_participants, finite_rows, guard_weights,
+                    RowBlocks, broadcast_to_participants, finite_rows, guard_weights,
                     guarded_aggregate, guarded_subset_aggregate,
                     init_fl_state, masked_aggregate, pseudo_gradients,
                     scheme_aggregate, scheme_subset_aggregate, scheme_weights,
@@ -37,6 +38,8 @@ __all__ = ["SimConfig", "SimResult", "apply_round_decision", "check_modes",
            "run_seed_matrix", "run_scenario_matrix", "MatrixResult",
            "RoundTrace", "build_chunk_sim", "init_carry",
            "stack_round_batches",
+           # client-axis placement (JAX's shard_clients)
+           "ClientPlacement", "PlacedStore", "RowBlocks",
            # resumable runs
            "run_resumable", "segment_bounds", "completed_segments",
            "read_segment_manifest",

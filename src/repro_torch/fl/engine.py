@@ -50,6 +50,15 @@ changes no bit.
   set, the staleness ledger before the broadcast, the corrupted deltas and
   the aggregation weights; ``SimResult.metrics`` holds it as numpy arrays.
   Taps only read: a tapped run is the untapped run bit for bit.
+* **client-axis placement** — JAX's ``shard_clients``: with several cards
+  visible :func:`make_runner` places the dense engine's client axis over
+  d of them (:func:`_client_mesh`, :mod:`repro_torch.fl.placement`) on
+  the device and prestack paths.  The client and anchor rows, local SGD,
+  eq. 2 and the broadcast then run a block of K/d rows a card, eq. 3 is
+  one K1 launch a card (its partial rows added on the first card), and
+  the decision, ledgers, taps and eval stay on the first card.  The
+  stream, sparse, matrix, resumable and legacy runs are never placed, as
+  in JAX.
 
 Every ``SimConfig`` setting is ported.  ``participation`` ``"sparse"``
 (and ``"auto"`` where its preconditions hold) dispatches to
@@ -84,8 +93,9 @@ from ..obs.taps import (init_metrics, metrics_active, metrics_numpy,
 from ..obs.telemetry import emit_run_manifest, get_telemetry
 from ..optim import Optimizer, sgd
 from .faults import apply_faults, corrupt_deltas, init_fault_state
-from .state import (FLState, broadcast_to_participants, guarded_aggregate,
-                    init_fl_state, masked_aggregate, pseudo_gradients,
+from .placement import ClientPlacement, PlacedStore
+from .state import (FLState, RowBlocks, broadcast_to_participants,
+                    guarded_aggregate, init_fl_state, masked_aggregate,
                     scheme_aggregate)
 
 
@@ -262,12 +272,11 @@ def round_decision(policy_fn: Callable, t: int, h_t: torch.Tensor,
                                 num_clients)
 
 
-def _client_mesh(num_clients: int, device=None):
-    """JAX places the client axis over a 1-D ``("k",)`` mesh of the largest
-    divisor-of-K prefix of the visible devices; ``None`` when one device is
-    visible (placement becomes a no-op), as in JAX.  More than one card
-    raises: client-axis placement on several cards is ROADMAP Queue 1
-    item 5's one part left, for a machine with more than one card."""
+def _client_mesh(num_clients: int, device=None) -> ClientPlacement | None:
+    """JAX's rule: the client axis over the largest divisor d of K no
+    larger than the visible cards, as a :class:`~repro_torch.fl.placement.
+    ClientPlacement` over d cards, ``device``'s first; ``None`` when d is 1
+    (one card, a CPU device, or a K with no such divisor above 1)."""
     device = resolve_device(device)
     n = torch.cuda.device_count() if device.type == "cuda" else 1
     if n <= 1:
@@ -276,10 +285,7 @@ def _client_mesh(num_clients: int, device=None):
             if num_clients % i == 0)
     if d <= 1:
         return None
-    raise NotImplementedError(
-        f"{n} cards are visible: placing the client axis on several cards "
-        f"(ROADMAP Queue 1 item 5, client-axis placement) is not ported; "
-        f"pass shard_clients=False to run on one")
+    return ClientPlacement.over_cards(device, d, num_clients)
 
 
 def make_local_train(loss_fn: Callable, opt: Optimizer):
@@ -336,14 +342,18 @@ def stack_round_batches(client_data: Sequence[Dataset], cfg: SimConfig,
     return torch.stack(xs).to(device), torch.stack(ys).to(device)
 
 
-def init_carry(params, num_clients: int, cfg: SimConfig, device=None):
+def init_carry(params, num_clients: int, cfg: SimConfig, device=None,
+               placement: ClientPlacement | None = None):
     """The round transition's carry: ``(FLState, energy [K])``, plus the
     per-client :class:`~repro_torch.fl.faults.FaultState` with faults on,
     plus the :class:`~repro_torch.obs.taps.MetricsState`, last, when
     ``cfg.metrics`` enables a tap; on ``device`` (``None`` means the
-    card)."""
+    card), the client and anchor rows over ``placement``'s devices when
+    one is given."""
     device = resolve_device(device)
-    carry = (init_fl_state(params, num_clients, device=device),
+    carry = (init_fl_state(params, num_clients, device=device,
+                           devices=None if placement is None
+                           else placement.devices),
              torch.zeros(num_clients, dtype=torch.float32, device=device))
     if cfg.faults is not None:
         carry = carry + (init_fault_state(num_clients, device),)
@@ -362,13 +372,29 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
     pw, base_key, test_x, test_y, fp, ap) -> (carry, (mask, e_round, acc,
     loss, did_eval, delivered, corrupt))`` for the absolute round ``t``;
     ``pw`` is the hoisted ``(probs, w)`` of the round, or ``None`` to ask
-    the policy."""
+    the policy.  With the client rows placed (:class:`~repro_torch.fl.
+    state.RowBlocks`, ``xb`` and ``yb`` too) the row-wise work runs a block
+    at a time on its device, the ``[K]`` vectors cut to its rows."""
     K = num_clients
     faults = cfg.faults
     guards = cfg.guards if cfg.guards is not None and cfg.guards.active \
         else None
     tapped = metrics_active(cfg.metrics, guards)
     check_modes(cfg)
+
+    def train_rows(client0, anchor, xb, yb, layout, delivered, corrupt, fp):
+        """Local SGD, the participants-mode keep, eq. 2 and the corruption
+        of the rows ``client0`` (anchors ``anchor``): ``(client,
+        deltas)``."""
+        client = local_train(client0, xb, yb, layout)
+        if cfg.local_mode == "participants":
+            # only clients whose update lands move; the rest keep
+            # client == anchor, so their pseudo-gradient stays zero
+            client = torch.where(delivered.bool()[:, None], client, client0)
+        deltas = client - anchor       # eq. 2 (pseudo_gradients)
+        if faults is not None:
+            deltas = corrupt_deltas(deltas, corrupt, fp, faults)
+        return client, deltas
 
     def round_step(carry, t, h_t, xb, yb, pw, base_key, test_x, test_y,
                    fp=None, ap=None):
@@ -385,16 +411,21 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
                 out.e_round
         energy = energy + e_round
         layout = state.layout
-        client = local_train(state.client_params, xb, yb, layout)
-        if cfg.local_mode == "participants":
-            # only clients whose update lands move; the rest keep
-            # client == anchor, so their pseudo-gradient stays zero
-            client = torch.where(delivered.bool()[:, None], client,
-                                 state.client_params)
+        rows = state.client_params
+        if isinstance(rows, RowBlocks):
+            bad = (rows.slices(corrupt) if corrupt is not None
+                   else [None] * len(rows))
+            legs = [train_rows(c, a, x, y, layout, dv, cr,
+                               _params_on(fp, c.device))
+                    for c, a, x, y, dv, cr in zip(
+                        rows, state.anchor_params, xb, yb,
+                        rows.slices(delivered), bad)]
+            client = RowBlocks(c for c, _ in legs)
+            deltas = RowBlocks(d for _, d in legs)
+        else:
+            client, deltas = train_rows(rows, state.anchor_params, xb, yb,
+                                        layout, delivered, corrupt, fp)
         state = state._replace(client_params=client)
-        deltas = pseudo_gradients(state)
-        if faults is not None:
-            deltas = corrupt_deltas(deltas, corrupt, fp, faults)
         if ap is not None or guards is not None or tapped:
             staleness = state.round - state.last_tx
         if ap is not None:   # probs: nominal, before the aging boost
@@ -426,6 +457,13 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
         return carry, (mask, e_round, acc, loss, did, delivered, corrupt)
 
     return round_step
+
+
+def _params_on(params, device):
+    """A ``NamedTuple`` of tensors (fault parameters) on ``device``."""
+    if params is None:
+        return None
+    return type(params)(*(v.to(device) for v in params))
 
 
 def _stack_trace(rows: list, device) -> RoundTrace:
@@ -466,7 +504,10 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
     and the eval stride are a single run's), ``h`` their ``[C, K]`` gains
     and ``pw`` their hoisted ``(probs, w)`` ``[C, K]`` each, or ``None``
     for a policy asked round by round.  Returns ``(carry, RoundTrace)``;
-    ``chunk.hoist`` says whether the policy is hoisted.
+    ``chunk.hoist`` says whether the policy is hoisted.  A placed run
+    (:func:`init_carry` with a placement) takes its batches as
+    :class:`~repro_torch.fl.state.RowBlocks` of ``[C, K/d, ...]`` blocks,
+    or a :class:`~repro_torch.fl.placement.PlacedStore`.
     """
     policy_fn = as_policy_fn(policy_fn)
     round_step = _make_round_step(make_local_train(loss_fn, opt), loss_fn,
@@ -499,12 +540,21 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
     if data_mode == "prestack":
         def chunk(carry, ts, h, xb, yb, pw, base_key, test_x, test_y,
                   fault_params=None, agg_params=None):
-            return run(carry, ts, h, lambda i, t: (xb[i], yb[i]), pw,
-                       base_key, test_x, test_y, fault_params, agg_params)
+            def batches(i, t):
+                if isinstance(xb, RowBlocks):
+                    return (RowBlocks(b[i] for b in xb),
+                            RowBlocks(b[i] for b in yb))
+                return xb[i], yb[i]
+
+            return run(carry, ts, h, batches, pw, base_key, test_x, test_y,
+                       fault_params, agg_params)
     else:
         def chunk(carry, ts, h, pw, store, data_key, base_key, test_x,
                   test_y, fault_params=None, agg_params=None):
             def batches(i, t):
+                if isinstance(store, PlacedStore):
+                    return store.sample(data_key, t, cfg.local_iters,
+                                        cfg.batch_size, cfg.data_stream)
                 return sample(store, data_key, t, cfg.local_iters,
                               cfg.batch_size)
 
@@ -566,10 +616,11 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
     :func:`repro_torch.fl.sparse.make_sparse_runner`'s; on the stream path
     it is the stream runner; else the dense engine's.  The dense and
     stream runners emit the ``"make_runner"`` manifest, the sparse one
-    ``"make_sparse_runner"``.  ``shard_clients`` (default auto) asks, as
-    JAX's does, for the dense engine's client axis on every visible
-    device: with one card it changes nothing; with more it raises
-    (:func:`_client_mesh`).
+    ``"make_sparse_runner"``.  ``shard_clients`` (default ``None``, auto,
+    the same as ``True``) places the dense engine's client axis over the
+    visible cards by JAX's rule (:func:`_client_mesh`) on the device and
+    prestack paths; with one card it changes nothing; ``False`` never
+    places.  The stream and sparse runners ignore it, as JAX's do.
     """
     from .sparse import make_sparse_runner, resolve_participation
 
@@ -589,10 +640,11 @@ def make_runner(loss_fn: Callable, acc_fn: Callable,
                                                             path),
                                    test_ds, policy_fn, cell, cfg, opt,
                                    device=device)
-    if shard_clients in (None, True):
-        _client_mesh(K, device)
+    placement = (_client_mesh(K, device) if shard_clients in (None, True)
+                 else None)
     return _dense_runner(loss_fn, acc_fn, client_data, test_ds, policy_fn,
-                         cell, cfg, opt, device=device, data_path=path)
+                         cell, cfg, opt, device=device, data_path=path,
+                         placement=placement)
 
 
 def _num_clients(client_data) -> int:
@@ -646,13 +698,18 @@ def _gains(h_all, device) -> torch.Tensor:
 def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
                   test_ds: Dataset, policy, cell: CellConfig, cfg: SimConfig,
                   opt: Optimizer | None = None, device=None,
-                  data_path: str = "device") -> Callable:
+                  data_path: str = "device",
+                  placement: ClientPlacement | None = None) -> Callable:
     """The dense engine's ``runner(params, h_all, seed=None,
     fault_params=None, agg_params=None) -> SimResult`` on the device store
     (``data_path="device"``) or the prestack batches (``"prestack"``, built
     here once).  The two keywords replace ``cfg.faults.params()`` and
     ``cfg.aggregator.params()`` for one run: what the matrix sweeps
-    sweep.  Each run is an ``engine.execute`` span, through the readback."""
+    sweep.  Each run is an ``engine.execute`` span, through the readback.
+    With ``placement`` the data is split along K at build time, packed on
+    the host (a store already built is split from where it lies), so the
+    first card never holds all of it; the client rows of every run stay on
+    their devices (``SimResult.state.gathered()`` joins them)."""
     policy_fn = as_policy_fn(policy)
     resolve_data_path(client_data, cfg, data_path)
     device = resolve_device(device)
@@ -662,9 +719,18 @@ def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
     if data_path == "prestack":
         shards = _shards(client_data, data_path)
         K = len(shards)
-        xb_all, yb_all = stack_round_batches(shards, cfg, device)
+        if placement is None:
+            xb_all, yb_all = stack_round_batches(shards, cfg, device)
+        else:
+            xb_all, yb_all = (placement.split(v, dim=1) for v in
+                              stack_round_batches(shards, cfg, "cpu"))
     else:
-        store = _as_store(client_data, device)
+        if placement is None:
+            store = _as_store(client_data, device)
+        else:
+            store = placement.place_store(
+                client_data if isinstance(client_data, DeviceDataStore)
+                else from_client_datasets(client_data, device="cpu"))
         K = store.num_clients
         data_key = data_stream_key(cfg.seed, device=device)
     test_x, test_y = _test_slice(test_ds, cfg, device)
@@ -678,7 +744,7 @@ def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
         h_rounds = _gains(h_all, device)
         with tel.span("engine.execute"):
             pw = hoisted_policy(policy_fn, h_rounds)
-            carry = init_carry(params, K, cfg, device)
+            carry = init_carry(params, K, cfg, device, placement)
             if data_path == "prestack":
                 carry, tr = chunk(carry, range(T), h_rounds, xb_all, yb_all,
                                   pw, key, test_x, test_y, fault_params,

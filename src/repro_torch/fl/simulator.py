@@ -130,9 +130,11 @@ def run_simulation(init_params,
                    cfg: SimConfig,
                    opt: Optimizer | None = None,
                    device=None) -> SimResult:
-    """Run all rounds on ``device`` (``None`` means the card)."""
+    """Run all rounds on ``device`` (``None`` means the card), the client
+    axis never placed over several cards, as JAX's ``run_simulation``."""
     return make_runner(loss_fn, acc_fn, client_data, test_ds, policy, cell,
-                       cfg, opt, device=device)(init_params, h_all)
+                       cfg, opt, device=device,
+                       shard_clients=False)(init_params, h_all)
 
 
 @torch.no_grad()

@@ -26,6 +26,15 @@ the CPU), in one of K1's three modes (:mod:`repro_torch.kernels.ops`):
   its TPU kernel zeroes it; the port follows the kernel.
 
 The guard and scheme weights are a handful of ``[R]`` operations.
+
+Under the dense engine's client-axis placement (:mod:`repro_torch.fl.
+placement`) the client and anchor rows are :class:`RowBlocks`, one block
+of rows a card.  :func:`finite_rows` and :func:`update_norms` then reduce
+each block on its card and join the results on the first; eq. 3 is one K1
+launch a block, the partial rows added on the first card in block order
+(:func:`masked_aggregate` in K1's subset mode, :func:`weighted_aggregate`
+and so the guard and scheme aggregators in its weighted mode); and
+:func:`broadcast_to_participants` resets each block on its card.
 """
 from __future__ import annotations
 
@@ -83,13 +92,65 @@ class ParamLayout:
         return layers
 
 
+class RowBlocks(tuple):
+    """A ``[K, ...]`` tensor as contiguous row blocks in row order, each on
+    its own device (:mod:`repro_torch.fl.placement`).  Block 0 lies on the
+    first device, where the global row and the ``[K]`` ledgers live."""
+
+    @property
+    def device(self) -> torch.device:
+        return self[0].device
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((sum(b.shape[0] for b in self),)
+                          + tuple(self[0].shape[1:]))
+
+    def slices(self, v: torch.Tensor) -> list:
+        """``v [K, ...]`` cut into the blocks' rows, each slice on its
+        block's device."""
+        out, start = [], 0
+        for b in self:
+            out.append(v[start:start + b.shape[0]].to(b.device,
+                                                      non_blocking=True))
+            start += b.shape[0]
+        return out
+
+    def replicas(self, v: torch.Tensor) -> list:
+        """``v`` on each block's device, copied once a device."""
+        on = {}
+        for b in self:
+            if b.device not in on:
+                on[b.device] = v.to(b.device, non_blocking=True)
+        return [on[b.device] for b in self]
+
+    def join(self, fn) -> torch.Tensor:
+        """``fn`` of each block on its device (a row-wise function), the
+        results joined on the first device in block order."""
+        return torch.cat([fn(b).to(self.device, non_blocking=True)
+                          for b in self])
+
+    def gather(self) -> torch.Tensor:
+        """The whole ``[K, ...]`` tensor on the first device."""
+        return self.join(lambda b: b)
+
+
 class FLState(NamedTuple):
     global_params: torch.Tensor  # [W], the server's x_t
-    client_params: torch.Tensor  # [K, W], x_{k,t}
-    anchor_params: torch.Tensor  # [K, W], y_{k,t}
+    client_params: torch.Tensor  # [K, W], x_{k,t} (RowBlocks when placed)
+    anchor_params: torch.Tensor  # [K, W], y_{k,t} (RowBlocks when placed)
     round: torch.Tensor          # int32 scalar
     last_tx: torch.Tensor        # [K] int32, round of last transmission
     layout: ParamLayout
+
+    def gathered(self) -> "FLState":
+        """This state with a placed run's client and anchor rows gathered
+        into ``[K, W]`` tensors on the first device; an unplaced state as
+        it is."""
+        if not isinstance(self.client_params, RowBlocks):
+            return self
+        return self._replace(client_params=self.client_params.gather(),
+                             anchor_params=self.anchor_params.gather())
 
 
 def replicate(params, k: int):
@@ -103,12 +164,23 @@ def replicate(params, k: int):
     return type(params)(replicate(v, k) for v in params)
 
 
-def init_fl_state(params, num_clients: int, device=None) -> FLState:
+def init_fl_state(params, num_clients: int, device=None,
+                  devices=None) -> FLState:
+    """Every client and anchor row the global row.  ``devices`` (d
+    devices, the first where ``device`` resolves) splits them into
+    :class:`RowBlocks` of K/d rows, each made on its device."""
     layout = ParamLayout.of(params)
     g = layout.flatten(params, device)
-    stacked = g.expand(num_clients, layout.width).clone()
-    return FLState(global_params=g, client_params=stacked,
-                   anchor_params=stacked.clone(),
+    if devices is None:
+        stacked = g.expand(num_clients, layout.width).clone()
+        client, anchor = stacked, stacked.clone()
+    else:
+        n = num_clients // len(devices)
+        client, anchor = (RowBlocks(
+            g.to(dev).expand(n, layout.width).clone() for dev in devices)
+            for _ in range(2))
+    return FLState(global_params=g, client_params=client,
+                   anchor_params=anchor,
                    round=torch.zeros((), dtype=torch.int32, device=g.device),
                    last_tx=torch.zeros(num_clients, dtype=torch.int32,
                                        device=g.device),
@@ -127,15 +199,49 @@ def masked_aggregate(global_params: torch.Tensor, deltas: torch.Tensor,
     if deltas.shape[0] != num_clients:
         raise ValueError(f"dense aggregation takes one delta row per client: "
                          f"{deltas.shape[0]} rows for K={num_clients}")
+    if isinstance(deltas, RowBlocks):
+        return _block_sums(global_params, deltas, mask, lambda g, d, m:
+                          ops.fl_aggregate_subset(g, d, m, num_clients))
     return ops.fl_aggregate(global_params, deltas, mask)
+
+
+def _block_sums(global_params: torch.Tensor, deltas: RowBlocks,
+               weights: torch.Tensor, launch) -> torch.Tensor:
+    """Eq. 3 over row blocks, GSPMD's partial sums and all-reduce written
+    out: ``launch(g, δ_s, w_s)`` (one K1 launch) on each block's device,
+    block 0 from the global row and the others from a zero row, the
+    partial rows added on the first device in block order.  Every launch
+    is issued before anything waits."""
+    out = None
+    for s, (d, w) in enumerate(zip(deltas, deltas.slices(weights))):
+        g = global_params if s == 0 else torch.zeros_like(global_params,
+                                                          device=d.device)
+        part = launch(g, d, w)
+        out = part if out is None else out + part.to(out.device,
+                                                     non_blocking=True)
+    return out
+
+
+def _reset_rows(rows: torch.Tensor, m: torch.Tensor,
+                new_global: torch.Tensor) -> torch.Tensor:
+    return torch.where(m[:, None], new_global[None], rows)
 
 
 def broadcast_to_participants(state: FLState, new_global: torch.Tensor,
                               mask: torch.Tensor) -> FLState:
-    """Protocol Step 5: participants receive x_t (both x_k and y_k reset)."""
+    """Protocol Step 5: participants receive x_t (both x_k and y_k reset);
+    placed rows on each block's device, with the new global row copied to
+    each device once."""
     m = mask.bool()
-    client = torch.where(m[:, None], new_global[None], state.client_params)
-    anchor = torch.where(m[:, None], new_global[None], state.anchor_params)
+    if isinstance(state.client_params, RowBlocks):
+        ms = state.client_params.slices(m)
+        gs = state.client_params.replicas(new_global)
+        client, anchor = (RowBlocks(map(_reset_rows, rows, ms, gs))
+                          for rows in (state.client_params,
+                                       state.anchor_params))
+    else:
+        client = _reset_rows(state.client_params, m, new_global)
+        anchor = _reset_rows(state.anchor_params, m, new_global)
     last_tx = torch.where(m, state.round, state.last_tx)
     return state._replace(global_params=new_global, client_params=client,
                           anchor_params=anchor, round=state.round + 1,
@@ -153,6 +259,8 @@ def subset_aggregate(global_params: torch.Tensor, deltas_p: torch.Tensor,
 
 def finite_rows(deltas: torch.Tensor) -> torch.Tensor:
     """``[R] bool``: False where any element of the row is NaN/Inf."""
+    if isinstance(deltas, RowBlocks):
+        return deltas.join(finite_rows)
     return torch.isfinite(deltas).all(dim=1)
 
 
@@ -160,12 +268,14 @@ def update_norms(deltas: torch.Tensor) -> torch.Tensor:
     """Per-row L2 norm, ``[R]`` float32; non-finite elements count 0.  One
     sum over the flat row (padding included, which is 0), where JAX sums
     each leaf and then the leaves: the same norm to rounding."""
+    if isinstance(deltas, RowBlocks):
+        return deltas.join(update_norms)
     d = deltas.to(torch.float32)
     d = torch.where(torch.isfinite(d), d, 0.0)
     return torch.sqrt(torch.sum(d * d, dim=1))
 
 
-def _guard_scale(deltas: torch.Tensor, staleness: torch.Tensor,
+def guard_scale(deltas: torch.Tensor, staleness: torch.Tensor,
                  guards) -> torch.Tensor:
     """The per-row guard weights of :func:`guard_weights`, ``[R]``."""
     w = torch.ones(staleness.shape[0], dtype=torch.float32,
@@ -199,7 +309,7 @@ def guard_weights(deltas: torch.Tensor, staleness: torch.Tensor,
     The aggregators below use only ``w``: K1's weighted mode zeroes the
     non-finite elements of a quarantined row itself.
     """
-    w = _guard_scale(deltas, staleness, guards)
+    w = guard_scale(deltas, staleness, guards)
     out = deltas
     if guards.quarantine:
         out = torch.where(finite_rows(deltas)[:, None], deltas, 0.0)
@@ -216,10 +326,10 @@ def guarded_aggregate(global_params: torch.Tensor, deltas: torch.Tensor,
     deltas."""
     if guards is None or not guards.active:
         return masked_aggregate(global_params, deltas, mask, num_clients)
-    m = mask.to(torch.float32) * _guard_scale(deltas, staleness, guards)
+    m = mask.to(torch.float32) * guard_scale(deltas, staleness, guards)
     inv = 1.0 / torch.as_tensor(num_clients, dtype=torch.float32,
                                 device=m.device)
-    return ops.fl_aggregate_guarded(global_params, deltas, m * inv)
+    return weighted_aggregate(global_params, deltas, m * inv)
 
 
 def guarded_subset_aggregate(global_params: torch.Tensor,
@@ -230,7 +340,7 @@ def guarded_subset_aggregate(global_params: torch.Tensor,
     padded transmitting bucket."""
     if guards is None or not guards.active:
         return subset_aggregate(global_params, deltas_p, valid, num_clients)
-    v = valid.to(torch.float32) * _guard_scale(deltas_p, staleness_p, guards)
+    v = valid.to(torch.float32) * guard_scale(deltas_p, staleness_p, guards)
     inv = 1.0 / torch.as_tensor(num_clients, dtype=torch.float32,
                                 device=v.device)
     return ops.fl_aggregate_guarded(global_params, deltas_p, v * inv)
@@ -371,9 +481,13 @@ def scheme_weights(mask: torch.Tensor, staleness: torch.Tensor,
 def weighted_aggregate(global_params: torch.Tensor, deltas: torch.Tensor,
                        weights: torch.Tensor) -> torch.Tensor:
     """x ← x + Σ_r a_r·δ_r: one K1 launch in its weighted mode (the weights
-    carry the masking, the 1/K or normalization and any guard scaling)."""
-    return ops.fl_aggregate_guarded(global_params, deltas,
-                                    weights.to(torch.float32))
+    carry the masking, the 1/K or normalization and any guard scaling);
+    over :class:`RowBlocks`, one launch a block."""
+    weights = weights.to(torch.float32)
+    if isinstance(deltas, RowBlocks):
+        return _block_sums(global_params, deltas, weights,
+                          ops.fl_aggregate_guarded)
+    return ops.fl_aggregate_guarded(global_params, deltas, weights)
 
 
 def scheme_aggregate(global_params: torch.Tensor, deltas: torch.Tensor,
@@ -387,7 +501,7 @@ def scheme_aggregate(global_params: torch.Tensor, deltas: torch.Tensor,
           if isinstance(agg, AggregatorConfig) else agg)
     m = mask.to(torch.float32)
     if guards is not None and guards.active:
-        m = m * _guard_scale(deltas, staleness, guards)
+        m = m * guard_scale(deltas, staleness, guards)
     a = scheme_weights(m, staleness, probs, ap, num_clients)
     return weighted_aggregate(global_params, deltas, a)
 

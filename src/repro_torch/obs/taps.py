@@ -212,12 +212,11 @@ def _effective_weights(deltas, delivered, staleness, probs, num_clients,
     into the delivery mask, then the scheme's weights or the paper's m/K
     (a few row-vector operations, so the aggregators keep their
     signatures and the untapped run its operations)."""
-    from ..fl.state import guard_weights, scheme_weights
+    from ..fl.state import guard_scale, scheme_weights
 
     m = delivered.to(torch.float32)
     if _guards_on(guards):
-        gw, _ = guard_weights(deltas, staleness, guards)
-        m = m * gw
+        m = m * guard_scale(deltas, staleness, guards)
     if agg_params is not None:
         return scheme_weights(m, staleness, probs, agg_params, num_clients)
     return m / torch.as_tensor(num_clients, dtype=torch.float32,

@@ -447,14 +447,15 @@ def test_round_decision_matches_jax():
 
 def test_make_runner_shard_clients_one_card_and_more(monkeypatch):
     """One visible device: ``_client_mesh`` is None, as JAX's, and the
-    runner is the same; more than one card: it raises, naming the ROADMAP
-    item, instead of ignoring the cards."""
+    runner is the same; more than one card: the placement JAX's mesh
+    gives, K 10 over the first 2 of 4 cards, 5 rows a card."""
     assert E._client_mesh(10, device="cpu") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert E._client_mesh(10, device="cuda") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        E._client_mesh(10, device="cuda")
+    place = E._client_mesh(10, device="cuda")
+    assert place.devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert place.num_clients == 10 and place.rows == 5
     assert E._client_mesh(7, device="cpu") is None
 
 
