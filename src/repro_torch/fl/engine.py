@@ -59,6 +59,16 @@ changes no bit.
   the decision, ledgers, taps and eval stay on the first card.  The
   stream, sparse, matrix, resumable and legacy runs are never placed, as
   in JAX.
+* **spans** — a run of the dense or stream runner is an
+  ``engine.execute`` span (through its readback), and each round four
+  spans under it: ``round.data`` (the batches: the index draw and, placed,
+  its slices and each block's gather), ``round.decision`` (the policy when
+  not hoisted, the decision, the fault pipeline, the energy ledger, on the
+  first card), ``round.local_sgd`` (local SGD, the participants-mode keep,
+  eq. 2, the corruption) and ``round.server`` (eq. 3 with its partial sums
+  when placed, the taps, the broadcast, the strided eval).  While a
+  profiler records they are timed on the run's cards too
+  (:mod:`repro_torch.obs.telemetry`).
 
 Every ``SimConfig`` setting is ported.  ``participation`` ``"sparse"``
 (and ``"auto"`` where its preconditions hold) dispatches to
@@ -381,6 +391,7 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
         else None
     tapped = metrics_active(cfg.metrics, guards)
     check_modes(cfg)
+    tel = get_telemetry()
 
     def train_rows(client0, anchor, xb, yb, layout, delivered, corrupt, fp):
         """Local SGD, the participants-mode keep, eq. 2 and the corruption
@@ -399,64 +410,79 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
     def round_step(carry, t, h_t, xb, yb, pw, base_key, test_x, test_y,
                    fp=None, ap=None):
         state, energy = carry[0], carry[1]
-        probs, w = pw if pw is not None else policy_fn(t, h_t, state)
-        mask, forced, w, e_round = apply_round_decision(
-            probs, w, t, h_t, state, base_key, cfg, cell, K)
-        e_base = e_round    # the decision energy, before the fault pipeline
-        delivered, corrupt = mask, None
-        if faults is not None:   # what lands, on the salted streams
-            out, fstate = apply_faults(t, base_key, mask, e_round, carry[2],
-                                       fp, faults)
-            delivered, corrupt, e_round = out.delivered, out.corrupt, \
-                out.e_round
-        energy = energy + e_round
+        devices = _run_devices(carry)
+        with tel.span("round.decision", devices[:1]):
+            probs, w = pw if pw is not None else policy_fn(t, h_t, state)
+            mask, forced, w, e_round = apply_round_decision(
+                probs, w, t, h_t, state, base_key, cfg, cell, K)
+            e_base = e_round   # the decision energy, before the faults
+            delivered, corrupt = mask, None
+            if faults is not None:   # what lands, on the salted streams
+                out, fstate = apply_faults(t, base_key, mask, e_round,
+                                           carry[2], fp, faults)
+                delivered, corrupt, e_round = out.delivered, out.corrupt, \
+                    out.e_round
+            energy = energy + e_round
         layout = state.layout
         rows = state.client_params
-        if isinstance(rows, RowBlocks):
-            bad = (rows.slices(corrupt) if corrupt is not None
-                   else [None] * len(rows))
-            legs = [train_rows(c, a, x, y, layout, dv, cr,
-                               _params_on(fp, c.device))
-                    for c, a, x, y, dv, cr in zip(
-                        rows, state.anchor_params, xb, yb,
-                        rows.slices(delivered), bad)]
-            client = RowBlocks(c for c, _ in legs)
-            deltas = RowBlocks(d for _, d in legs)
-        else:
-            client, deltas = train_rows(rows, state.anchor_params, xb, yb,
-                                        layout, delivered, corrupt, fp)
+        with tel.span("round.local_sgd", devices):
+            if isinstance(rows, RowBlocks):
+                bad = (rows.slices(corrupt) if corrupt is not None
+                       else [None] * len(rows))
+                legs = [train_rows(c, a, x, y, layout, dv, cr,
+                                   _params_on(fp, c.device))
+                        for c, a, x, y, dv, cr in zip(
+                            rows, state.anchor_params, xb, yb,
+                            rows.slices(delivered), bad)]
+                client = RowBlocks(c for c, _ in legs)
+                deltas = RowBlocks(d for _, d in legs)
+            else:
+                client, deltas = train_rows(rows, state.anchor_params, xb,
+                                            yb, layout, delivered, corrupt,
+                                            fp)
         state = state._replace(client_params=client)
-        if ap is not None or guards is not None or tapped:
-            staleness = state.round - state.last_tx
-        if ap is not None:   # probs: nominal, before the aging boost
-            new_global = scheme_aggregate(
-                state.global_params, deltas, delivered, K, staleness,
-                probs, ap, guards=guards)
-        elif guards is not None:
-            new_global = guarded_aggregate(state.global_params, deltas,
-                                           delivered, K, staleness, guards)
-        else:
-            new_global = masked_aggregate(state.global_params, deltas,
-                                          delivered, K)
-        if tapped:
-            mstate = metrics_round_update(
-                carry[-1], cfg.metrics, mask=mask, forced=forced,
-                e_base=e_base, e_round=e_round, staleness=staleness,
-                delivered=delivered, deltas=deltas, probs=probs,
-                num_clients=K, guards=guards, agg_params=ap)
-        state = broadcast_to_participants(state, new_global, delivered)
-        did = cfg.eval_mode == "inscan" and (t % cfg.eval_every == 0
-                                             or t == cfg.rounds - 1)
-        acc = loss = None
-        if did:
-            g = layout.unflatten(state.global_params)
-            acc = acc_fn(g, test_x, test_y).to(torch.float32)
-            loss = loss_fn(g, test_x, test_y).to(torch.float32)
+        with tel.span("round.server", devices):
+            if ap is not None or guards is not None or tapped:
+                staleness = state.round - state.last_tx
+            if ap is not None:   # probs: nominal, before the aging boost
+                new_global = scheme_aggregate(
+                    state.global_params, deltas, delivered, K, staleness,
+                    probs, ap, guards=guards)
+            elif guards is not None:
+                new_global = guarded_aggregate(state.global_params, deltas,
+                                               delivered, K, staleness,
+                                               guards)
+            else:
+                new_global = masked_aggregate(state.global_params, deltas,
+                                              delivered, K)
+            if tapped:
+                mstate = metrics_round_update(
+                    carry[-1], cfg.metrics, mask=mask, forced=forced,
+                    e_base=e_base, e_round=e_round, staleness=staleness,
+                    delivered=delivered, deltas=deltas, probs=probs,
+                    num_clients=K, guards=guards, agg_params=ap)
+            state = broadcast_to_participants(state, new_global, delivered)
+            did = cfg.eval_mode == "inscan" and (t % cfg.eval_every == 0
+                                                 or t == cfg.rounds - 1)
+            acc = loss = None
+            if did:
+                g = layout.unflatten(state.global_params)
+                acc = acc_fn(g, test_x, test_y).to(torch.float32)
+                loss = loss_fn(g, test_x, test_y).to(torch.float32)
         carry = (state, energy) + ((fstate,) if faults is not None else ()) \
             + ((mstate,) if tapped else ())
         return carry, (mask, e_round, acc, loss, did, delivered, corrupt)
 
     return round_step
+
+
+def _run_devices(carry) -> tuple:
+    """The devices a run's carry lies on: each row block's, or the one
+    device of an unplaced run; the first holds the decision."""
+    rows = carry[0].client_params
+    if isinstance(rows, RowBlocks):
+        return tuple(b.device for b in rows)
+    return (carry[1].device,)
 
 
 def _params_on(params, device):
@@ -516,6 +542,7 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
         raise ValueError(f"unknown data_mode {data_mode!r}")
     sample = (sample_round_client_stream if cfg.data_stream == "client"
               else sample_round)
+    tel = get_telemetry()
 
     def run(carry, ts, h, batches, pw, base_key, test_x, test_y,
             fault_params, agg_params):
@@ -528,8 +555,10 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
             ap = (cfg.aggregator.params(device) if agg_params is None
                   else agg_params)
         rows = []
+        devices = _run_devices(carry)
         for i, t in enumerate(ts):
-            xb, yb = batches(i, int(t))
+            with tel.span("round.data", devices):
+                xb, yb = batches(i, int(t))
             carry, row = round_step(
                 carry, int(t), h[i], xb, yb,
                 None if pw is None else (pw[0][i], pw[1][i]), base_key,
@@ -736,13 +765,14 @@ def _dense_runner(loss_fn: Callable, acc_fn: Callable, client_data,
     test_x, test_y = _test_slice(test_ds, cfg, device)
     T = cfg.rounds
     tel = get_telemetry()
+    devices = (device,) if placement is None else placement.devices
 
     @torch.no_grad()
     def run(params, h_all, seed: int | None = None, fault_params=None,
             agg_params=None) -> tuple[SimResult, np.ndarray]:
         key = jr.PRNGKey(cfg.seed if seed is None else seed, device=device)
         h_rounds = _gains(h_all, device)
-        with tel.span("engine.execute"):
+        with tel.span("engine.execute", devices):
             pw = hoisted_policy(policy_fn, h_rounds)
             carry = init_carry(params, K, cfg, device, placement)
             if data_path == "prestack":
@@ -787,25 +817,28 @@ def _make_stream_runner(loss_fn: Callable, acc_fn: Callable,
     test_x, test_y = _test_slice(test_ds, cfg, device)
     C = max(1, int(cfg.stream_chunk))
     bounds = [(t0, min(t0 + C, T)) for t0 in range(0, T, C)]
+    tel = get_telemetry()
 
     @torch.no_grad()
     def runner(params, h_all, seed: int | None = None, fault_params=None,
                agg_params=None) -> SimResult:
         key = jr.PRNGKey(cfg.seed if seed is None else seed, device=device)
         h_rounds = _gains(h_all, device)
-        pw = hoisted_policy(policy_fn, h_rounds)
-        carry = init_carry(params, K, cfg, device)
-        buf = sampler.chunk(*bounds[0])
-        traces = []
-        for i, (t0, t1) in enumerate(bounds):
-            carry, tr = chunk(carry, range(t0, t1), h_rounds[t0:t1], *buf,
-                              None if pw is None
-                              else (pw[0][t0:t1], pw[1][t0:t1]),
-                              key, test_x, test_y, fault_params, agg_params)
-            traces.append(tr)
-            if i + 1 < len(bounds):   # the copy overlaps the chunk in flight
-                buf = sampler.chunk(*bounds[i + 1])
-        return _to_result(carry, concat_traces(traces), cfg)
+        with tel.span("engine.execute", (device,)):
+            pw = hoisted_policy(policy_fn, h_rounds)
+            carry = init_carry(params, K, cfg, device)
+            buf = sampler.chunk(*bounds[0])
+            traces = []
+            for i, (t0, t1) in enumerate(bounds):
+                carry, tr = chunk(carry, range(t0, t1), h_rounds[t0:t1],
+                                  *buf, None if pw is None
+                                  else (pw[0][t0:t1], pw[1][t0:t1]),
+                                  key, test_x, test_y, fault_params,
+                                  agg_params)
+                traces.append(tr)
+                if i + 1 < len(bounds):   # the copy overlaps the chunk
+                    buf = sampler.chunk(*bounds[i + 1])
+            return _to_result(carry, concat_traces(traces), cfg)
 
     runner.sampler = sampler
     return runner
@@ -887,9 +920,8 @@ def run_seed_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
     emit_run_manifest("run_seed_matrix", cfg,
                       extra={"lanes": len(seeds),
                              "num_clients": _num_clients(data)})
-    with get_telemetry().span("seed_matrix.execute"):
-        lanes = [runner.with_e_round(init_params, h[s], seed=int(seed))
-                 for s, seed in enumerate(seeds)]
+    lanes = [runner.with_e_round(init_params, h[s], seed=int(seed))
+             for s, seed in enumerate(seeds)]
     return _matrix_result(lanes, (len(seeds),))
 
 
@@ -910,14 +942,11 @@ def run_scenario_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
                       extra={"rhos": len(rhos), "lanes": len(seeds),
                              "num_clients": _num_clients(data)})
     lanes = []
-    with get_telemetry().span("scenario_matrix.execute"):
-        for rho in rhos:
-            rho_t = torch.tensor(float(rho), dtype=torch.float32,
-                                 device=device)
-            runner = _dense_runner(loss_fn, acc_fn, data, test_ds,
-                                   online_policy(spec, rho=rho_t),
-                                   spec.cell, cfg, opt, device=device,
-                                   data_path=path)
-            lanes += [runner.with_e_round(init_params, h[s], seed=int(seed))
-                      for s, seed in enumerate(seeds)]
+    for rho in rhos:
+        rho_t = torch.tensor(float(rho), dtype=torch.float32, device=device)
+        runner = _dense_runner(loss_fn, acc_fn, data, test_ds,
+                               online_policy(spec, rho=rho_t), spec.cell,
+                               cfg, opt, device=device, data_path=path)
+        lanes += [runner.with_e_round(init_params, h[s], seed=int(seed))
+                  for s, seed in enumerate(seeds)]
     return _matrix_result(lanes, (len(rhos), len(seeds)))

@@ -382,7 +382,7 @@ def run_fault_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
     flat row's pad columns.
     """
     from ..obs.taps import stack_metrics
-    from ..obs.telemetry import emit_run_manifest, get_telemetry
+    from ..obs.telemetry import emit_run_manifest
     from .engine import _dense_runner, matrix_data, solve_once
 
     if cfg.faults is None:
@@ -407,9 +407,7 @@ def run_fault_matrix(init_params, loss_fn, acc_fn, client_data, test_ds,
             loss_fn, acc_fn, data, test_ds, policy_fn, cell,
             dataclasses.replace(cfg, guards=guards), device=device,
             data_path=path)
-        with get_telemetry().span("fault_matrix.execute"):
-            lanes = [runner(init_params, h_all, fault_params=fp)
-                     for fp in fps]
+        lanes = [runner(init_params, h_all, fault_params=fp) for fp in fps]
         eval_rounds = lanes[0].eval_rounds
         out_acc[name] = np.stack([r.test_acc for r in lanes])
         out_loss[name] = np.stack([r.test_loss for r in lanes])

@@ -37,7 +37,7 @@ from ..core.selection import (age_aware_policy, as_policy_fn, csma_policy,
                               policy_ledger_ok, random_policy)
 from ..data.device import DeviceDataStore
 from ..obs.taps import stack_metrics
-from ..obs.telemetry import emit_run_manifest, get_telemetry
+from ..obs.telemetry import emit_run_manifest
 from ..optim import Optimizer, sgd
 from .engine import _as_store, _dense_runner, check_modes, solve_once
 from .sparse import build_sparse_train_program, make_sparse_runner
@@ -211,30 +211,29 @@ def run_scheme_matrix(init_params, loss_fn: Callable, acc_fn: Callable,
             raise ValueError("sparse scheme matrix requires "
                              "SimConfig(data_stream='client')")
 
-    with get_telemetry().span("scheme_matrix.execute"):
-        # [l][s]: a state-free policy solved once per seed lane, shared by
-        # every severity
-        pols = [[solve_once(fn, h[s]) for s in range(S)] for fn in fns]
-        if participation == "dense":
-            def make(store, pol):
-                return _dense_runner(loss_fn, acc_fn, store, test_ds, pol,
-                                     cell, run_cfg, opt, device=device)
-        else:
-            bucket = run_cfg.participant_bucket or _shared_bucket(
-                fns, [p[0] for p in pols], h[0].T, K)
-            lane_cfg = dataclasses.replace(run_cfg, participant_bucket=bucket,
-                                           overflow="error")
-            train = build_sparse_train_program(loss_fn, acc_fn, opt,
-                                               lane_cfg)
+    # [l][s]: a state-free policy solved once per seed lane, shared by
+    # every severity
+    pols = [[solve_once(fn, h[s]) for s in range(S)] for fn in fns]
+    if participation == "dense":
+        def make(store, pol):
+            return _dense_runner(loss_fn, acc_fn, store, test_ds, pol,
+                                 cell, run_cfg, opt, device=device)
+    else:
+        bucket = run_cfg.participant_bucket or _shared_bucket(
+            fns, [p[0] for p in pols], h[0].T, K)
+        lane_cfg = dataclasses.replace(run_cfg, participant_bucket=bucket,
+                                       overflow="error")
+        train = build_sparse_train_program(loss_fn, acc_fn, opt,
+                                           lane_cfg)
 
-            def make(store, pol):
-                return make_sparse_runner(loss_fn, acc_fn, store, test_ds,
-                                          pol, cell, lane_cfg, opt,
-                                          device=device, train_program=train)
+        def make(store, pol):
+            return make_sparse_runner(loss_fn, acc_fn, store, test_ds,
+                                      pol, cell, lane_cfg, opt,
+                                      device=device, train_program=train)
 
-        lanes = [make(severity[v], pols[l][s])(
-            init_params, h[s], seed=int(seeds[s]), agg_params=aps[l])
-            for v in range(V) for l in range(L) for s in range(S)]
+    lanes = [make(severity[v], pols[l][s])(
+        init_params, h[s], seed=int(seeds[s]), agg_params=aps[l])
+        for v in range(V) for l in range(L) for s in range(S)]
 
     def stack(field):
         a = np.stack([getattr(r, field) for r in lanes])

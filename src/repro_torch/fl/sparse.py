@@ -46,6 +46,13 @@ phase A emits two more participant lanes (``forced_p``, ``base_p``) and
 trace after the round loop; phase B accumulates the train taps over its
 bucket; :func:`~repro_torch.obs.taps.merge_metrics` joins them.  Integer
 taps equal the dense engine's.
+
+A run's spans: ``sparse.phase_a`` (through its ``n_tx`` readback), then
+``sparse.train`` over ``sparse.gather`` (the participant gather) and
+``sparse.phase_b`` (through its readback), then ``sparse.densify`` (the
+trace's readbacks and the ``[T, K]`` densification on the host); the first
+four are timed on the card too while a profiler records
+(:mod:`repro_torch.obs.telemetry`).
 """
 from __future__ import annotations
 
@@ -415,12 +422,8 @@ def build_sparse_train_program(loss_fn: Callable, acc_fn: Callable,
 
 
 def _cached_train_program(key, build: Callable) -> Callable:
-    tel = get_telemetry()
     if key not in _TRAIN_CACHE:
-        tel.inc("sparse.train_cache_miss")
         _TRAIN_CACHE[key] = build()
-    else:
-        tel.inc("sparse.train_cache_hit")
     return _TRAIN_CACHE[key]
 
 
@@ -511,12 +514,9 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
 
     def _phase_a(bucket: int, h_rounds, key):
         if bucket not in phase_a:
-            tel.inc("sparse.phase_a_cache_miss")
             phase_a[bucket] = build_participation_program(
                 policy_fn, cfg, cell, K, bucket)
-        else:
-            tel.inc("sparse.phase_a_cache_hit")
-        with tel.span("sparse.phase_a"):
+        with tel.span("sparse.phase_a", (device,)):
             out = phase_a[bucket](h_rounds, key)
             return out, out[2].n_tx.cpu().numpy()
 
@@ -550,53 +550,57 @@ def make_sparse_runner(loss_fn: Callable, acc_fn: Callable,
             _train_cache_key(cfg, opt_token, loss_fn, acc_fn, params,
                              store.x.shape[2:], test_x.shape, bucket),
             lambda: build_sparse_train_program(loss_fn, acc_fn, opt, cfg))
-        with tel.span("sparse.train"):   # the gather, phase B, the readback
-            xb_all, yb_all = gather_participant_rounds(
-                store, data_key, ptr.part_idx, cfg.local_iters,
-                cfg.batch_size)
-            out = train(
-                params, xb_all, yb_all, ptr.valid, ptr.anchor_slot, K,
-                test_x, test_y, ptr.delivered, ptr.corrupt, ptr.stale,
-                ptr.prob, agg_params)
-            g_final, (accs, losses, did) = out[:2]
-            accs, losses = accs.cpu().numpy(), losses.cpu().numpy()
+        with tel.span("sparse.train", (device,)):
+            with tel.span("sparse.gather", (device,)):
+                xb_all, yb_all = gather_participant_rounds(
+                    store, data_key, ptr.part_idx, cfg.local_iters,
+                    cfg.batch_size)
+            with tel.span("sparse.phase_b", (device,)):   # to its readback
+                out = train(
+                    params, xb_all, yb_all, ptr.valid, ptr.anchor_slot, K,
+                    test_x, test_y, ptr.delivered, ptr.corrupt, ptr.stale,
+                    ptr.prob, agg_params)
+                g_final, (accs, losses, did) = out[:2]
+                accs, losses = accs.cpu().numpy(), losses.cpu().numpy()
         ms_b = out[2] if ttap else None
 
-        # host-side densification of the participant trace (numpy, O(T·K))
-        idx = ptr.part_idx.cpu().numpy()
-        val = ptr.valid.cpu().numpy()
-        e_p = ptr.e_p.cpu().numpy()
-        t_of = np.broadcast_to(np.arange(T)[:, None], idx.shape)
-        sel = (t_of[val], idx[val])
+        with tel.span("sparse.densify"):
+            # the trace's readbacks and its densification on the host
+            # (numpy, O(T·K))
+            idx = ptr.part_idx.cpu().numpy()
+            val = ptr.valid.cpu().numpy()
+            e_p = ptr.e_p.cpu().numpy()
+            t_of = np.broadcast_to(np.arange(T)[:, None], idx.shape)
+            sel = (t_of[val], idx[val])
 
-        def dense(lanes):
-            out = np.zeros((T, K), np.float32)
-            out[sel] = lanes.cpu().numpy()[val]
-            return out
+            def dense(lanes):
+                out = np.zeros((T, K), np.float32)
+                out[sel] = lanes.cpu().numpy()[val]
+                return out
 
-        parts = np.zeros((T, K), np.float32)
-        parts[sel] = 1.0
-        e_round = np.zeros((T, K), np.float32)
-        e_round[sel] = e_p[val]
-        ev = np.where(did.numpy())[0]
-        state = FLState(global_params=g_final, client_params=None,
-                        anchor_params=None,
-                        round=torch.tensor(T, dtype=torch.int32,
-                                           device=device),
-                        last_tx=last_tx, layout=ParamLayout.of(params))
-        return SimResult(
-            test_acc=accs[ev],
-            test_loss=losses[ev],
-            eval_rounds=ev,
-            energy_per_client=energy.cpu().numpy(),
-            energy_timeline=np.cumsum(e_round.sum(axis=1)),
-            participation=parts,
-            state=state,
-            delivered=dense(ptr.delivered) if cfg.faults is not None
-            else None,
-            corrupted=dense(ptr.corrupt) if cfg.faults is not None
-            else None,
-            metrics=metrics_numpy(merge_metrics(ms_a, ms_b)))
+            parts = np.zeros((T, K), np.float32)
+            parts[sel] = 1.0
+            e_round = np.zeros((T, K), np.float32)
+            e_round[sel] = e_p[val]
+            ev = np.where(did.numpy())[0]
+            state = FLState(global_params=g_final, client_params=None,
+                            anchor_params=None,
+                            round=torch.tensor(T, dtype=torch.int32,
+                                               device=device),
+                            last_tx=last_tx, layout=ParamLayout.of(params))
+            return SimResult(
+                test_acc=accs[ev],
+                test_loss=losses[ev],
+                eval_rounds=ev,
+                energy_per_client=energy.cpu().numpy(),
+                energy_timeline=np.cumsum(e_round.sum(axis=1)),
+                participation=parts,
+                state=state,
+                delivered=dense(ptr.delivered) if cfg.faults is not None
+                else None,
+                corrupted=dense(ptr.corrupt) if cfg.faults is not None
+                else None,
+                metrics=metrics_numpy(merge_metrics(ms_a, ms_b)))
 
     runner.store = store
     return runner

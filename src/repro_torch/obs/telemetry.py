@@ -13,10 +13,28 @@ writing to disk is opt-in:
 * ``REPRO_PROFILE_DIR`` (or :func:`configure`) — :func:`maybe_profile`
   wraps a block in ``torch.profiler`` and exports a Chrome trace there.
 
-Spans aggregate per name (count / total / max seconds), so a million
-runner calls cost a bounded dict.  A span measures the host clock: around
-work on the card it covers the enqueue unless the work inside ends in a
-synchronisation.
+Spans aggregate per name as ``[count, total_s, max_s, parent]`` (a million
+runner calls cost a bounded dict): the host clock (``perf_counter``), and
+the name of the span open around it on the same thread when the name was
+first recorded (``None`` at a root), so :meth:`Telemetry.snapshot` gives
+the tree and a span's self time (its total less its children's).  On the
+host clock a span around work on the card covers the enqueue unless the
+work inside ends in a synchronisation.
+
+Tracing is on exactly while a ``torch.profiler`` records (the benchmark's
+traced window, :func:`maybe_profile`, or a caller's own profiler); there
+is no other switch.  Then a span is also a ``record_function`` range, so
+it sits in the profiler's timeline above its kernels and the card's idle
+gaps, and on each CUDA device of its ``devices`` a pair of timing events
+brackets it on the device's current stream, with no synchronisation inside
+the span.  The pairs are read when the outermost open span on the thread
+closes (each root of the engines ends in a readback, so that read waits on
+nothing; a root that does not pays one synchronisation) into ``<name>.device``
+in the same format, the longest of its devices, its parent the nearest
+enclosing span that times devices.  A pair runs from the phase's start on
+the stream to the end of its last kernel, so it holds any idle in which
+the card waited for the phase's host work: consecutive phases' pairs tile
+the card's timeline.
 """
 from __future__ import annotations
 
@@ -27,6 +45,7 @@ import json
 import os
 import platform
 import subprocess
+import threading
 import time
 from typing import Any
 
@@ -66,30 +85,77 @@ class Telemetry:
 
     def reset(self) -> None:
         self.counters: dict = {}
-        self.spans: dict = {}          # name -> [count, total_s, max_s]
+        self.spans: dict = {}   # name -> [count, total_s, max_s, parent]
         self.manifests: list = []
+        self._local = threading.local()   # each thread's open spans
 
     def inc(self, name: str, n: int = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
 
+    def _record(self, name: str, dt: float, parent: str | None) -> None:
+        c = self.spans.get(name)
+        if c is None:
+            c = self.spans[name] = [0, 0.0, 0.0, parent]
+        c[0] += 1
+        c[1] += dt
+        c[2] = max(c[2], dt)
+
     @contextlib.contextmanager
-    def span(self, name: str):
+    def span(self, name: str, devices=()):
+        """Time the block as ``name`` on the host clock; while a profiler
+        records, also as a ``record_function`` range and, on each CUDA
+        device of ``devices`` (``torch.device``s; others and repeats are
+        skipped), a timing-event pair (see the module docstring)."""
+        local = self._local
+        if not hasattr(local, "open"):
+            local.open, local.pending = [], []
+        stack = local.open
+        parent = stack[-1][0] if stack else None
+        pairs = None
+        if torch._C._autograd._profiler_enabled():
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+            pairs = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True), d)
+                     for d in dict.fromkeys(devices) if d.type == "cuda"]
+            for start, _, d in pairs:
+                start.record(torch.cuda.current_stream(d))
+        stack.append((name, bool(pairs)))
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
-            c = self.spans.setdefault(name, [0, 0.0, 0.0])
-            c[0] += 1
-            c[1] += dt
-            c[2] = max(c[2], dt)
+            stack.pop()
+            if pairs is not None:
+                for _, end, d in pairs:
+                    end.record(torch.cuda.current_stream(d))
+                rf.__exit__(None, None, None)
+            self._record(name, dt, parent)
+            if pairs:
+                timed = [n for n, on in stack if on]
+                local.pending.append((name + ".device", pairs,
+                                      timed[-1] + ".device" if timed
+                                      else None))
+            if not stack and local.pending:
+                self._resolve(local.pending)
+
+    def _resolve(self, pending: list) -> None:
+        """Each closed span's device time, the longest of its pairs."""
+        for name, pairs, parent in pending:
+            for _, end, _ in pairs:
+                end.synchronize()
+            self._record(name, max(start.elapsed_time(end)
+                                   for start, end, _ in pairs) * 1e-3,
+                         parent)
+        pending.clear()
 
     def span_stats(self, name: str) -> dict | None:
         c = self.spans.get(name)
         if c is None:
             return None
         return {"count": c[0], "total_s": c[1], "max_s": c[2],
-                "mean_s": c[1] / max(c[0], 1)}
+                "mean_s": c[1] / max(c[0], 1), "parent": c[3]}
 
     def snapshot(self) -> dict:
         return {"counters": dict(self.counters),

@@ -5,8 +5,9 @@ on the card against the CPU, the stream path against the device path and
 a killed-and-resumed run against an uninterrupted one on the card, the
 stream sampler's pinned side-stream copy, ``shard_store`` on the card
 against the CPU, tapped runs on the three paths (tapped = untapped, card =
-CPU, taps included), the legacy loop against the dense engine, and the
-card's memory snapshot, profile and ``timed_compile``.
+CPU, taps included), the legacy loop against the dense engine, the
+card's memory snapshot, profile and ``timed_compile``, and the round-phase
+spans timed on the card under a profiler.
 
 Every test here is marked ``cuda`` and skips where there is no card.  This
 file imports neither JAX nor the JAX package, so it also runs on a host that
@@ -568,3 +569,36 @@ def test_memory_snapshot_and_profile_on_the_card(card, tmp_path):
     fn = timed_compile(lambda v: (v * 2).sum(), x, label="cuda_test")
     assert float(fn(x)) == 2.0 * x.numel()
     assert tel.span_stats("cuda_test.compile")["count"] >= 1
+
+
+def test_round_spans_are_timed_on_the_card_under_a_profiler(card,
+                                                            monkeypatch):
+    """Under a profiler each round span of a dense run gets a ``.device``
+    entry of T records, and the phases' device times add up to no more
+    than the run's host time (they tile the card's timeline inside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import telemetry
+    tel = telemetry.Telemetry()
+    monkeypatch.setattr(telemetry, "_TELEMETRY", tel)
+    K, T = 24, 8
+    clients, test, h, params = small_world(card, K, T)
+    run = make_runner(mlp_loss, mlp_accuracy, clients, test,
+                      RandomScheme(0.25, K), CellConfig(num_clients=K),
+                      SimConfig(rounds=T, local_iters=2, batch_size=4,
+                                eval_every=3, data_path="device"),
+                      device=card, shard_clients=False)
+    run(params, h)
+    assert not any(n.endswith(".device") for n in tel.spans)
+    untraced = tel.spans["engine.execute"][1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run(params, h)
+    names = ("round.data", "round.decision", "round.local_sgd",
+             "round.server")
+    for name in names:
+        count, total, _, parent = tel.spans[name + ".device"]
+        assert (count, parent) == (T, "engine.execute.device"), name
+        assert total > 0.0
+    assert tel.spans["engine.execute.device"][0] == 1
+    phases = sum(tel.spans[n + ".device"][1] for n in names)
+    assert phases <= tel.spans["engine.execute"][1] - untraced
