@@ -6,9 +6,10 @@
 Phases, each reporting on its own lines:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, the precision settings, and the ``nvcc`` builds of K1, K2
-   and K3, all three at once (from ``src/repro_torch/kernels/csrc``, into
-   ``kernels/_build``), with ptxas's registers and spills;
+   CUDA versions, the precision settings, and the ``nvcc`` builds of K1, K2,
+   K3 and ``mlp_sgd``, all four at once (from
+   ``src/repro_torch/kernels/csrc``, into ``kernels/_build``), with ptxas's
+   registers and spills;
 2. kernel — K1 (``fl_aggregate``) in all three modes, float32 and bfloat16,
    R ∈ {1, 7, 8, 10, 11, 12, 16, 64, 65, 100, 1000} rows (directly loaded
    rows, the ring, partial stages, the main path's R), M ∈ {77, 8193, 159012, 199210, 600001}
@@ -23,6 +24,15 @@ Phases, each reporting on its own lines:
    and 64 (M 159,012) — beside the bandwidth bound and the time of a
    trivial launch; the launch plans the design rejected, timed beside the
    one it takes; the wrapper's host time a call;
+2b. the MLP's local-SGD kernel (``mlp_sgd``) at the main path's shapes:
+   R 10,000 (the dense cell's K) and 2,048 (the sparse cell's bucket) rows
+   × L 5 × B 10 of the 784-200-10 MLP, held against its plain version
+   (rtol 1e-4, atol 1e-5, padding bit-equal) on inputs with a margin at
+   relu's kink, the rows beyond it counted on the paper's inputs, and two
+   launches bit-equal;
+   then its CUDA-event time with the L2 flushed (median), beside its
+   bound (bytes: each row read and written once plus the batches; FMAs:
+   the forward, dh and the weight gradients) and the plain version's;
 3. slice — the quickstart simulation at full width and data scale (K = 10,
    the 784-200-10 MLP, 60,000/10,000 MNIST-like examples, non-IID d = 5,
    T = 12 rounds of 5 local steps of batch 10, ρ = 0.05, λ = 0.01) for
@@ -236,7 +246,11 @@ order only.  Any failed check raises and the script exits non-zero; with no
 CUDA card, or without the rest of the repository beside it, it exits
 non-zero before printing any result.  The last line is the one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels
-(K1, K2 and K3), each with its launches on its main path (phases 3 to 3g
+(K1, K2, K3 and ``mlp_local_sgd``, the last with its launches in
+phases 3 and 3b, counted from zero before each run and held to one a
+round, and phase 2b's times at R 10,000 and, under ``bucket_2048``, at
+R 2,048), each with its launches on its main path
+(phases 3 to 3g
 for K1, also counted by mode: plain, subset and weighted, and phase 3g's
 alone by mode, with the
 non-finite rows phase 3d's faulty runs reduced; the generate
@@ -310,7 +324,7 @@ def environment(torch):
     import importlib
     modules = tuple(importlib.import_module(f"repro_torch.kernels.{name}")
                     for name in ("fl_aggregate", "flash_attention",
-                                 "selective_scan"))
+                                 "selective_scan", "mlp_sgd"))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         libs = list(pool.map(lambda module: module.library(), modules))
@@ -452,6 +466,105 @@ def check_kernel(torch):
     log(f"[kernel] deterministic: two launches bit-equal in {len(cases)} "
         f"cases (R 7 to 1000, direct and ring, fp32 and bf16, misaligned)")
     return main_err, checked
+
+
+# ---------------------------------------------------------------------------
+# phase 2b
+# ---------------------------------------------------------------------------
+
+# (R, L, B): the dense cell's K 10,000 and the sparse cell's 2,048-row
+# bucket, 5 local steps of batch 10
+MLP_SGD_SHAPES = ((10_000, 5, 10), (2_048, 5, 10))
+
+
+def mlp_sgd_bound(R, L, B, bandwidth, dims=(784, 200, 10), W=MAIN_M):
+    """The least time (ms) of R rows' L local steps: ``(bytes_ms, ops_ms)``.
+    Bytes: each row read once and written once, the batches (inputs and
+    labels) read once.  Operations: 2 FLOPs an FMA of the forward (x.W1,
+    h.W2), dh and the two weight gradients."""
+    D, H, C = dims
+    nbytes = 2 * R * W * 4 + R * L * B * (D + 1) * 4
+    fmas = R * L * B * (2 * D * H + 3 * H * C)
+    return nbytes / bandwidth * 1e3, 2 * fmas / FP32_PEAK * 1e3
+
+
+def mlp_sgd_inputs(torch, gen, params, layout, R, L, B, margin):
+    """Rows near ``params`` with padding 7.25 and a step's batches; with
+    ``margin`` b1 is +1 and -1 in turn and the inputs 0.1 N(0, 1), so every
+    pre-activation is 7 sigma from relu's kink (tests/test_torch_cuda.py:
+    sgd_inputs)."""
+    first = layout.flatten(params)
+    if margin:
+        first[:200] = 1.0 - 2.0 * (torch.arange(200, device="cuda") % 2)
+    rows = first.expand(R, -1) + 0.01 * torch.randn(
+        R, layout.width, generator=gen, device="cuda")
+    rows[:, layout.size:] = 7.25
+    xb = torch.randn(R, L, B, 784, generator=gen, device="cuda")
+    if margin:
+        xb *= 0.1
+    yb = torch.randint(0, 10, (R, L, B), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    return rows, xb, yb
+
+
+def time_mlp_sgd(torch, bandwidth):
+    """Phase 2b; returns each shape's numbers, by ``(R, L, B)``.  The
+    kernel is held against its plain version on inputs with a margin at
+    relu's kink (every element within tolerance); on the paper's inputs,
+    where a few of the R·L·B·200 pre-activations land within rounding of 0
+    and the two may take relu's two sides once their last bits part, the
+    rows beyond the tolerance are counted (the kernel's rows are
+    autograd's bit for bit: tests/test_torch_cuda.py)."""
+    from repro_torch import random as jr
+    from repro_torch.fl.state import ParamLayout
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mlp_sgd import launch_plan, mlp_local_sgd_cuda
+    from repro_torch.models.small import init_mlp
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_mlp(jr.PRNGKey(0), device="cuda")
+    layout = ParamLayout.of(params)
+    flush = torch.empty(64 * 2**20 // 4, device="cuda")   # > the 50 MB L2
+    lr = 0.01
+    out = {}
+    for R, L, B in MLP_SGD_SHAPES:
+        for margin in (True, False):
+            rows, xb, yb = mlp_sgd_inputs(torch, gen, params, layout, R, L,
+                                          B, margin)
+            got = mlp_local_sgd_cuda(rows, xb, yb, lr, layout)
+            want = ref.mlp_local_sgd_ref(rows, xb, yb, lr, layout)
+            err = float((got - want).abs().max())
+            beyond = int((~torch.isclose(got, want, rtol=1e-4, atol=1e-5))
+                         .any(1).sum())
+            if (margin and beyond) or not torch.equal(
+                    got[:, layout.size:], rows[:, layout.size:]):
+                raise AssertionError(f"mlp_sgd differs from its plain "
+                                     f"version at R {R}: max |diff| "
+                                     f"{err:.3e} in {beyond} rows")
+            if not torch.equal(got, mlp_local_sgd_cuda(rows, xb, yb, lr,
+                                                       layout)):
+                raise AssertionError(f"two mlp_sgd launches differ at R {R}")
+            del got, want
+            log(f"[mlp-sgd] R {R} x L {L} x B {B}, "
+                f"{'inputs with a margin' if margin else 'the paper inputs'}"
+                f": max |kernel - plain| {err:.3e}, rows beyond rtol 1e-4 / "
+                f"atol 1e-5: {beyond} of {R}; two launches bit-equal")
+        kernel_ms = time_ms(torch, lambda: mlp_local_sgd_cuda(
+            rows, xb, yb, lr, layout), flush, iters=10, warmup=2)
+        plain_ms = time_ms(torch, lambda: ref.mlp_local_sgd_ref(
+            rows, xb, yb, lr, layout), flush, iters=3, warmup=1)
+        bytes_ms, ops_ms = mlp_sgd_bound(R, L, B, bandwidth)
+        bound_ms = max(bytes_ms, ops_ms)
+        plan = launch_plan(B, 784, 200, 10, layout.width)
+        log(f"[mlp-sgd] R {R} x L {L} x B {B} (784-200-10): kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms (bytes {bytes_ms:.4f}, FMA {ops_ms:.4f}), "
+            f"{100 * bound_ms / kernel_ms:.1f} % of it; plan {plan}")
+        out[(R, L, B)] = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bytes_ms": bytes_ms,
+                          "ops_ms": ops_ms, "max_abs_err": err}
+        del rows, xb, yb
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_main_shapes(torch, checked) -> None:
@@ -655,6 +768,7 @@ def slice_runs(torch):
     from repro_torch.data import Dataset, make_mnist_like, shard_noniid
     from repro_torch.fl import SimConfig, run_simulation
     from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+    from repro_torch.kernels.mlp_sgd import mlp_local_sgd_cuda
     from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
 
     cell = CellConfig(num_clients=K)
@@ -680,20 +794,22 @@ def slice_runs(torch):
             ("random", RandomScheme(p_bar=0.1, num_clients=K), cfg),
             ("proposed-staleness3", ProposedOnline(spec),
              dataclasses.replace(cfg, max_staleness=3))]
-    card, launches = {}, 0
+    card, launches, sgd_launches = {}, 0, 0
     for name, policy, run_cfg in runs:
         fl_aggregate_cuda.launches = 0
+        mlp_local_sgd_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run_simulation(params, mlp_loss, mlp_accuracy, clients, test,
                              policy, h, cell, run_cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = fl_aggregate_cuda.launches
-        if n != T:
-            raise AssertionError(f"{name}: K1 launched {n} times in {T} "
-                                 f"rounds")
+        n, m = fl_aggregate_cuda.launches, mlp_local_sgd_cuda.launches
+        if n != T or m != T:
+            raise AssertionError(f"{name}: K1 launched {n} times and "
+                                 f"mlp_sgd {m} times in {T} rounds")
         launches += n
+        sgd_launches += m
         if out.participation.shape != (T, K) or not all(
                 np.isfinite(a).all() for a in (out.test_acc, out.test_loss,
                                                out.energy_per_client)):
@@ -703,7 +819,7 @@ def slice_runs(torch):
             f"final_loss={out.test_loss[-1]:.4f} "
             f"energy={out.energy_per_client.sum():.4f} J "
             f"uploads={int(out.participation.sum())} wall={wall:.2f} s "
-            f"K1 launches={n} (= T)")
+            f"K1 launches={n} (= T), mlp_sgd launches={m} (= T)")
 
     # the proposed scheme's (P1') solve of every round, alone and warm: how
     # much of a proposed run it takes
@@ -715,7 +831,8 @@ def slice_runs(torch):
         f"{time.perf_counter() - t0:.2f} s (mean p = "
         f"{float(probs.mean()):.4f})")
     world = dict(cell=cell, spec=spec, clients=clients, test=test, h=h,
-                 params=params, probs=probs, w=w)
+                 params=params, probs=probs, w=w,
+                 mlp_sgd_launches={"phase_3": sgd_launches})
 
     def cpu(ds):
         return Dataset(ds.x.cpu(), ds.y.cpu(), ds.num_classes)
@@ -773,6 +890,7 @@ def panel_runs(torch, world):
     from repro_torch.fl import (AggregatorConfig, GuardConfig, SimConfig,
                                 run_simulation)
     from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+    from repro_torch.kernels.mlp_sgd import mlp_local_sgd_cuda
     from repro_torch.models.small import mlp_accuracy, mlp_loss
 
     t_phase = time.perf_counter()
@@ -826,10 +944,11 @@ def panel_runs(torch, world):
         ("proposed+guards", ProposedOnline(spec),
          with_(guards=GuardConfig(quarantine=True, staleness_power=0.5)),
          True)]
-    card, launches, weighted_launches = {}, 0, 0
+    card, launches, weighted_launches, sgd_launches = {}, 0, 0, 0
     for name, policy, run_cfg, weighted in runs:
         fl_aggregate_cuda.launches = 0
         fl_aggregate_cuda.guarded_launches = 0
+        mlp_local_sgd_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run_simulation(world["params"], mlp_loss, mlp_accuracy,
@@ -838,11 +957,14 @@ def panel_runs(torch, world):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n, n_w = fl_aggregate_cuda.launches, fl_aggregate_cuda.guarded_launches
-        if n != T or n_w != (T if weighted else 0):
+        m = mlp_local_sgd_cuda.launches
+        if n != T or n_w != (T if weighted else 0) or m != T:
             raise AssertionError(f"{name}: K1 launched {n} times, {n_w} in "
-                                 f"its weighted mode, in {T} rounds")
+                                 f"its weighted mode, and mlp_sgd {m} "
+                                 f"times in {T} rounds")
         launches += n
         weighted_launches += n_w
+        sgd_launches += m
         if out.participation.shape != (T, K) or not all(
                 np.isfinite(a).all() for a in (out.test_acc, out.test_loss,
                                                out.energy_per_client)):
@@ -852,7 +974,8 @@ def panel_runs(torch, world):
             f"final_loss={out.test_loss[-1]:.4f} "
             f"energy={out.energy_per_client.sum():.4f} J "
             f"uploads={int(out.participation.sum())} wall={wall:.2f} s "
-            f"K1 launches={n} (= T), weighted={n_w}")
+            f"K1 launches={n} (= T), weighted={n_w}, mlp_sgd launches={m} "
+            f"(= T)")
     for name, policy, run_cfg, _ in runs:
         t0 = time.perf_counter()
         ref = run_simulation(world["c_params"], mlp_loss, mlp_accuracy,
@@ -864,6 +987,7 @@ def panel_runs(torch, world):
             f"loss within rtol {SLICE_RTOL} atol {SLICE_ATOL} (worst "
             f"{worst:.3f} of the tolerance); cpu wall={wall:.2f} s")
     log(f"[panel] phase 3b in {time.perf_counter() - t_phase:.1f} s")
+    world["mlp_sgd_launches"]["phase_3b"] = sgd_launches
     return launches, weighted_launches
 
 
@@ -4994,6 +5118,9 @@ def main() -> int:
         f"TFLOP/s fp32")
     max_err, checked = check_kernel(torch)
     timing = time_kernel(torch, bandwidth)
+    t0 = time.perf_counter()
+    sgd_timing = time_mlp_sgd(torch, bandwidth)
+    log(f"[mlp-sgd] phase 2b in {time.perf_counter() - t0:.1f} s")
     from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
     fl_aggregate_cuda.shapes.clear()
     launches, world = slice_runs(torch)
@@ -5106,6 +5233,14 @@ def main() -> int:
                     "plain_forward_backward_ms": k3_train[1][1],
                     "forward_backward_bound_ms": k3_train[3][0],
                     "forward_backward_bound_by": k3_train[3][1]},
+    }, {
+        "name": "mlp_local_sgd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlp_sgd.cu",
+        "replaces": None,
+        "launches": world["mlp_sgd_launches"],
+        **sgd_timing[MLP_SGD_SHAPES[0]],
+        "bucket_2048": sgd_timing[MLP_SGD_SHAPES[1]],
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all; K1 timings "
         f"at R={K}, M={MAIN_M} fp32 (L2 dirty) and, in phase_9, at the "

@@ -304,9 +304,20 @@ def make_local_train(loss_fn: Callable, opt: Optimizer):
     ``loss_fn`` takes params stacked over clients and returns the ``[R]``
     per-client mean losses; the gradient of their sum with respect to the
     stacked row is each client's own gradient (JAX's
-    ``vmap(grad(loss_fn))``)."""
+    ``vmap(grad(loss_fn))``).
 
-    def local_train(flat, xb, yb, layout):
+    Two routes, counted per call in the telemetry: where the loss declares
+    a fused trainer (``loss_fn.fused_sgd``, the MLP's), the optimizer is
+    plain SGD (``opt.lr`` set), there is a step to take, the rows are
+    CUDA float32 and the trainer takes their layout, the whole call is one
+    kernel launch (``local_sgd.kernel``), on contiguous inputs and int32
+    labels, and raises on what the kernel cannot take (a batch past 32);
+    everything else — the CNN, momentum, Adam, CPU rows, ``local_iters``
+    0 — runs the autograd loop (``local_sgd.autograd``)."""
+    fused = getattr(loss_fn, "fused_sgd", None)
+
+    def autograd_train(flat, xb, yb, layout):
+        get_telemetry().inc("local_sgd.autograd")
         state = opt.init(flat)
         for i in range(xb.shape[1]):
             with torch.enable_grad():
@@ -316,6 +327,17 @@ def make_local_train(loss_fn: Callable, opt: Optimizer):
             upd, state = opt.update(g, state, flat)
             flat = flat + upd
         return flat
+
+    if fused is None or opt.lr is None:
+        return autograd_train
+
+    def local_train(flat, xb, yb, layout):
+        if (xb.shape[1] == 0 or not flat.is_cuda
+                or flat.dtype != torch.float32 or not fused.takes(layout)):
+            return autograd_train(flat, xb, yb, layout)
+        get_telemetry().inc("local_sgd.kernel")
+        return fused.run(flat.contiguous(), xb.contiguous(),
+                         yb.to(torch.int32).contiguous(), opt.lr, layout)
 
     return local_train
 

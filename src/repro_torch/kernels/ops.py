@@ -37,6 +37,9 @@ of ``repro.kernels.ops`` for eq. (3) all launch the one K1 kernel
   folded into the weights, ``inv_k = 1``;
 * :func:`fl_aggregate_guarded` — fully folded weights, ``inv_k = 1``, with
   non-finite delta elements zeroed inside the reduction.
+
+:func:`mlp_local_sgd` runs L local SGD steps of an MLP's client rows
+(:mod:`.mlp_sgd`, a kernel with no Pallas counterpart).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from torch.utils.flop_counter import register_flop_formula
 from . import ref
 from .fl_aggregate import fl_aggregate_cuda
 from .flash_attention import flash_attention_cuda
+from .mlp_sgd import mlp_local_sgd_cuda
 from .selective_scan import selective_scan_cuda
 
 
@@ -429,3 +433,12 @@ def selective_scan(xc, dt, Bm, Cm, A, D):
     if not _on_card(xc):
         return ref.selective_scan_ref(*args)
     return selective_scan_cuda(*args)
+
+
+def mlp_local_sgd(rows, xb, yb, lr: float, layout):
+    """L local SGD steps of one-hidden-layer MLP client rows ``[R, W]`` on
+    ``xb [R, L, B, ...]``, ``yb [R, L, B]``: the kernel on a CUDA tensor,
+    the plain version on a CPU one."""
+    if _on_card(rows):
+        return mlp_local_sgd_cuda(rows, xb, yb, lr, layout)
+    return ref.mlp_local_sgd_ref(rows, xb, yb, lr, layout)

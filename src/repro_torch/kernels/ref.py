@@ -92,3 +92,32 @@ def selective_scan_ref(xc: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
             + (dt_t * Bm[:, t, None, :]) * xc[:, t, :, None]
         y[:, t] = (h * Cm[:, t, None, :]).sum(-1) + D * xc[:, t]
     return y, h
+
+
+def mlp_local_sgd_ref(rows: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
+                      lr: float, layout) -> torch.Tensor:
+    """L steps of plain SGD of R one-hidden-layer ReLU MLPs, each its own
+    row of ``rows [R, W]`` (the leaves where ``layout`` puts them), on
+    ``xb [R, L, B, ...]`` and ``yb [R, L, B]``: the forward and backward
+    written out, no autograd.  Each gradient is autograd's of the summed
+    per-client mean cross-entropy (``dh`` from the step's W2, relu's
+    gradient where ``!(h <= 0)``, log_softmax's backward ``g - p·Σg``), and
+    each leaf moves by ``leaf + (-lr)·g`` as ``opt.sgd`` and the flat row
+    do.  Returns new rows; the padding is copied."""
+    out = rows.clone()
+    (l1, l2) = layout.unflatten(out)
+    R, L, B = yb.shape
+    x_all = xb.reshape(R, L, B, l1["w"].shape[-2])
+    for s in range(L):
+        x, y = x_all[:, s], yb[:, s].long()
+        h = torch.relu(x @ l1["w"] + l1["b"].unsqueeze(-2))
+        logits = h @ l2["w"] + l2["b"].unsqueeze(-2)
+        p = torch.exp(torch.log_softmax(logits, dim=-1))
+        g = torch.zeros_like(logits).scatter_(-1, y.unsqueeze(-1), -1.0 / B)
+        dl = g - p * g.sum(-1, keepdim=True)
+        dh = torch.where(h <= 0, 0.0, dl @ l2["w"].transpose(-1, -2))
+        grads = ((l2["w"], h.transpose(-1, -2) @ dl), (l2["b"], dl.sum(-2)),
+                 (l1["w"], x.transpose(-1, -2) @ dh), (l1["b"], dh.sum(-2)))
+        for leaf, grad in grads:
+            leaf.add_(-lr * grad)
+    return out

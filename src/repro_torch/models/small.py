@@ -4,7 +4,10 @@
   784·200+200+200·10+10 = 159,010 float32 parameters (the JAX docstring's
   199,210 is a slip; the cell's model size S = 6.37e6 bits is the paper's
   figure and is kept).  Params are a list of ``{"w": [n_in, n_out], "b":
-  [n_out]}`` layers — JAX's layout.
+  [n_out]}`` layers — JAX's layout.  ``mlp_loss.fused_sgd`` is its own
+  local-SGD trainer (:class:`FusedSGD`): the engine asks a loss for it and
+  runs plain SGD of the MLP's flat client rows through the hand-written
+  kernel where it takes them (:mod:`repro_torch.kernels.mlp_sgd`).
 * ``cnn``: the AlexNet stand-in for the CIFAR-like data: 3×3 "SAME"
   convolutions of widths (32, 64, 128), each with ReLU and 2×2 max pooling,
   then fc 256 and 10 logits; 620,362 parameters.  Params are the list
@@ -25,12 +28,14 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import random as jr
 from .. import resolve_device
+from ..kernels import mlp_sgd, ops
 
 
 def _dense_init(key, n_in, n_out, device):
@@ -72,6 +77,19 @@ def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def mlp_loss(params, x, y):
     return cross_entropy(mlp_logits(params, x), y)
+
+
+class FusedSGD(NamedTuple):
+    """A loss's own trainer for plain SGD over flat client rows:
+    ``takes(layout)`` says whether ``run(rows, xb, yb, lr, layout)`` trains
+    rows of that layout; it gives what ``L`` steps of ``sgd(lr)`` through
+    autograd give, to rounding."""
+    takes: Callable[..., bool]
+    run: Callable[..., torch.Tensor]
+
+
+mlp_loss.fused_sgd = FusedSGD(lambda layout: mlp_sgd.widths(layout)
+                              is not None, ops.mlp_local_sgd)
 
 
 def mlp_accuracy(params, x, y):

@@ -20,6 +20,9 @@ class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     # (grads, state, params) -> (updates, state)
     update: Callable[[Any, Any, Any], tuple[Any, Any]]
+    # plain SGD's step size, so a loss's fused trainer can take its place;
+    # None for every other optimizer
+    lr: float | None = None
 
 
 def sgd(lr: float) -> Optimizer:
@@ -29,7 +32,7 @@ def sgd(lr: float) -> Optimizer:
     def update(grads, state, params):
         return -lr * grads, state
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, lr)
 
 
 def momentum(lr: float, beta: float = 0.9) -> Optimizer:

@@ -6,8 +6,10 @@ a killed-and-resumed run against an uninterrupted one on the card, the
 stream sampler's pinned side-stream copy, ``shard_store`` on the card
 against the CPU, tapped runs on the three paths (tapped = untapped, card =
 CPU, taps included), the legacy loop against the dense engine, the
-card's memory snapshot, profile and ``timed_compile``, and the round-phase
-spans timed on the card under a profiler.
+card's memory snapshot, profile and ``timed_compile``, the round-phase
+spans timed on the card under a profiler, and the MLP's local-SGD kernel
+(``mlp_sgd``) against its plain version and inside dense, sparse and
+placed runs.
 
 Every test here is marked ``cuda`` and skips where there is no card.  This
 file imports neither JAX nor the JAX package, so it also runs on a host that
@@ -16,12 +18,14 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
+import contextlib
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+import repro_torch.fl.engine as E
 from repro_torch import random as jr
 from repro_torch.core import CellConfig
 from repro_torch.core.channel import channel_gains, sample_positions
@@ -30,16 +34,21 @@ from repro_torch.data import (Dataset, DeviceDataStore, StreamingSampler,
                               data_stream_key, from_client_datasets,
                               make_mnist_like, shard_noniid, shard_store,
                               stack_rounds_reference)
-from repro_torch.fl import (AggregatorConfig, FaultConfig, GuardConfig,
-                            SchemeSpec, SimConfig, guarded_aggregate,
+from repro_torch.fl import (AggregatorConfig, ClientPlacement, FaultConfig,
+                            GuardConfig, SchemeSpec, SimConfig,
+                            guarded_aggregate,
                             make_runner, make_sparse_runner, run_resumable,
                             run_scheme_matrix, run_simulation,
                             run_simulation_legacy, scheme_aggregate)
+from repro_torch.fl.engine import make_local_train
+from repro_torch.fl.state import ParamLayout
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fl_aggregate import fl_aggregate_cuda
+from repro_torch.kernels.mlp_sgd import launch_plan, mlp_local_sgd_cuda
 from repro_torch.models.small import init_mlp, mlp_accuracy, mlp_loss
 from repro_torch.obs import MetricsSpec, maybe_profile, timed_compile
 from repro_torch.obs.telemetry import get_telemetry
+from repro_torch.optim import sgd
 
 pytestmark = pytest.mark.cuda
 
@@ -602,3 +611,230 @@ def test_round_spans_are_timed_on_the_card_under_a_profiler(card,
     assert tel.spans["engine.execute.device"][0] == 1
     phases = sum(tel.spans[n + ".device"][1] for n in names)
     assert phases <= tel.spans["engine.execute"][1] - untraced
+
+
+# ---------------------------------------------------------------------------
+# the MLP's local SGD (kernels/mlp_sgd.py, csrc/mlp_sgd.cu)
+# ---------------------------------------------------------------------------
+
+def sgd_inputs(card, R, L, B, dims=(784, 200, 10), seed=0, margin=False):
+    """``R`` rows near one initial MLP, one row into a larger tensor (an
+    offset) with non-zero padding, and ``[R, L, B, D]`` inputs and ``[R, L,
+    B]`` int32 labels.  With ``margin`` every pre-activation stays far from
+    relu's kink: b1 is +1 and -1 in turn and the inputs 0.1 N(0, 1), so
+    x.W1 is ~N(0, 0.02) and each unit is on, or off, by 7 sigma.  Without
+    it, over millions of pre-activations a few land within rounding of 0.
+    The kernel gives autograd's bits (below), but the plain version rounds
+    the softmax's gradient in two steps where PyTorch's kernel fuses them,
+    so after a step the two sets of parameters differ in their last bits
+    and such a z may fall on relu's two sides: that unit's W1 column then
+    differs by ~1e-3, both equally right."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    params = init_mlp(jr.PRNGKey(seed), dims, device=card)
+    if margin:
+        params[0]["b"] = 1.0 - 2.0 * (torch.arange(
+            dims[1], device=card) % 2).float()
+    layout = ParamLayout.of(params)
+    big = layout.flatten(params).expand(R + 1, -1) + 0.01 * torch.randn(
+        R + 1, layout.width, generator=gen, device=card)
+    big[:, layout.size:] = 7.25
+    xb = torch.randn(R, L, B, dims[0], generator=gen, device=card)
+    if margin:
+        xb *= 0.1
+    yb = torch.randint(0, dims[-1], (R, L, B), generator=gen, device=card,
+                       dtype=torch.int32)
+    return big[1:], xb, yb, layout
+
+
+@pytest.mark.parametrize("R", [1, 7, 2048])
+@pytest.mark.parametrize("B", [1, 10, 32])
+@pytest.mark.parametrize("L", [0, 1, 5])
+def test_mlp_sgd_matches_plain_version(card, R, B, L):
+    rows, xb, yb, layout = sgd_inputs(card, R, L, B, margin=True)
+    before = mlp_local_sgd_cuda.launches
+    got = mlp_local_sgd_cuda(rows, xb, yb, 0.05, layout)
+    torch.cuda.synchronize()
+    assert mlp_local_sgd_cuda.launches == before + 1
+    want = ref.mlp_local_sgd_ref(rows, xb, yb, 0.05, layout)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[:, layout.size:], rows[:, layout.size:])
+    if L == 0:
+        assert torch.equal(got, rows)
+
+
+# The build whose kernels' summation order csrc/mlp_sgd.cu copies (cuBLAS's
+# FMA chains at these shapes, torch.sum's accumulators, the warp softmax).
+AUTOGRAD_ORDER_BUILD = ("2.11.0+cu128", "12.8")
+
+
+@pytest.mark.parametrize("L", [1, 5])
+def test_mlp_sgd_equals_autograd_bit_for_bit(card, L):
+    """On the paper's inputs (no margin at relu's kink) at the sparse
+    bucket's R 2,048 and B 10, the kernel gives autograd's rows bit for
+    bit on the PyTorch and CUDA build whose order it copies: it sums every
+    product, the softmax and the bias gradients as PyTorch's kernels do on
+    the card there.  Another build may pick other cuBLAS kernels (at R 64
+    this one already does), so there the kernel is held to autograd at the
+    rounding tolerance, on inputs with a margin at relu's kink.  (A lambda
+    around the loss declares no fused trainer, so ``make_local_train``
+    takes the autograd loop.)"""
+    exact = (torch.__version__, torch.version.cuda) == AUTOGRAD_ORDER_BUILD
+    rows, xb, yb, layout = sgd_inputs(card, 2048, L, 10, margin=not exact)
+    got = mlp_local_sgd_cuda(rows, xb, yb, 0.01, layout)
+    want = make_local_train(lambda p, x, y: mlp_loss(p, x, y), sgd(0.01))(
+        rows, xb, yb, layout)
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,cluster", [(1, 4), (10, 4), (16, 8), (32, 8)])
+def test_launch_plan_at_the_papers_widths(card, B, cluster):
+    """The library's plan: 4 CTAs a row up to B 10 (a CTA's 50 W1 columns,
+    157 KB, and the batch), 8 above."""
+    p = launch_plan(B, 784, 200, 10, 159_012)
+    assert p.cluster == cluster and 0 < p.smem <= 232_448
+
+
+@pytest.mark.parametrize("B,D,H,C,W", [
+    (33, 784, 200, 10, 159_012),     # batch above the largest tile
+    (10, 784, 202, 10, 160_404),     # hidden width not a multiple of 4
+    (10, 784, 2048, 10, 1_628_176),  # a CTA's W1 columns past its memory
+    (10, 784, 200, 10, 159_010),     # row not a multiple of 4 floats
+    (10, 784, 200, 13, 159_616),     # more classes than the kernel holds
+    (10, 4096, 200, 10, 821_412)])   # a W1 span past shared memory
+def test_launch_plan_refuses(card, B, D, H, C, W):
+    assert launch_plan(B, D, H, C, W) is None
+
+
+def test_route_takes_the_kernel_whatever_the_labels_and_strides(card):
+    """The route is chosen by what the function is (the MLP's loss, plain
+    SGD, CUDA float32 rows); int64 labels and a strided batch are made
+    int32 and contiguous for the kernel, which counts and gives the same
+    rows, and a batch past the kernel's 32 raises rather than falling back
+    to autograd."""
+    rows, xb, yb, layout = sgd_inputs(card, 6, 2, 10, margin=True)
+    want = mlp_local_sgd_cuda(rows, xb, yb, 0.05, layout)
+    train = make_local_train(mlp_loss, sgd(0.05))
+    tel = get_telemetry()
+    tel.reset()
+    before = mlp_local_sgd_cuda.launches
+    strided = xb.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    assert torch.equal(train(rows, xb, yb.long(), layout), want)
+    assert torch.equal(train(rows, strided, yb, layout), want)
+    assert mlp_local_sgd_cuda.launches == before + 2
+    assert (tel.counters.get("local_sgd.kernel", 0),
+            tel.counters.get("local_sgd.autograd", 0)) == (2, 0)
+    big = torch.zeros(6, 1, 33, 784, device=card)
+    with pytest.raises(ValueError, match="no launch plan"):
+        train(rows, big, torch.zeros(6, 1, 33, dtype=torch.int32,
+                                     device=card), layout)
+    assert tel.counters.get("local_sgd.autograd", 0) == 0
+
+
+@pytest.mark.parametrize("dims,B", [((10, 8, 3), 4), ((20, 12, 5), 7),
+                                    ((64, 32, 10), 16)])
+def test_mlp_sgd_other_widths(card, dims, B):
+    rows, xb, yb, layout = sgd_inputs(card, 9, 3, B, dims=dims, seed=1)
+    got = mlp_local_sgd_cuda(rows, xb, yb, 0.1, layout)
+    want = ref.mlp_local_sgd_ref(rows, xb, yb, 0.1, layout)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_mlp_sgd_is_deterministic_and_row_by_row(card):
+    """Two launches give the same bits, and a row's result does not depend
+    on the launch's other rows."""
+    rows, xb, yb, layout = sgd_inputs(card, 300, 5, 10)
+    a = mlp_local_sgd_cuda(rows, xb, yb, 0.01, layout)
+    b = mlp_local_sgd_cuda(rows, xb, yb, 0.01, layout)
+    assert torch.equal(a, b)
+    for r in (0, 137, 299):
+        one = mlp_local_sgd_cuda(rows[r:r + 1].contiguous(),
+                                 xb[r:r + 1].contiguous(),
+                                 yb[r:r + 1].contiguous(), 0.01, layout)
+        assert torch.equal(one[0], a[r])
+
+
+def test_mlp_sgd_wrapper_refuses_what_the_kernel_does_not_take(card):
+    rows, xb, yb, layout = sgd_inputs(card, 4, 2, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlp_local_sgd_cuda(rows.cpu(), xb.cpu(), yb.cpu(), 0.01, layout)
+    with pytest.raises(ValueError, match="contiguous"):
+        mlp_local_sgd_cuda(rows, xb.transpose(0, 1).contiguous().transpose(
+            0, 1), yb, 0.01, layout)
+    with pytest.raises(ValueError, match="int32"):
+        mlp_local_sgd_cuda(rows, xb, yb.long(), 0.01, layout)
+    with pytest.raises(ValueError, match="float32"):
+        mlp_local_sgd_cuda(rows.double(), xb, yb, 0.01, layout)
+    deep = ParamLayout.of(init_mlp(jr.PRNGKey(0), (784, 200, 8, 10),
+                                   device=card))
+    with pytest.raises(ValueError, match="layout"):
+        mlp_local_sgd_cuda(torch.zeros(4, deep.width, device=card), xb, yb,
+                           0.01, deep)
+    big_batch = torch.zeros(4, 2, 33, 784, device=card)
+    with pytest.raises(ValueError, match="no launch plan"):
+        mlp_local_sgd_cuda(rows, big_batch, torch.zeros(
+            4, 2, 33, dtype=torch.int32, device=card), 0.01, layout)
+
+
+@contextlib.contextmanager
+def placed_over(devices):
+    rule = E._client_mesh
+    E._client_mesh = lambda k, device=None: ClientPlacement(tuple(devices), k)
+    try:
+        yield
+    finally:
+        E._client_mesh = rule
+
+
+@pytest.mark.parametrize("path", ["dense", "sparse", "placed"])
+def test_mlp_runs_take_the_kernel_on_the_card(card, path, monkeypatch):
+    """The MLP under plain SGD on the card: one kernel launch a round (a
+    block a round placed, the blocks over the visible cards, each launch
+    on its block's card), ``local_sgd.kernel`` counted and
+    ``local_sgd.autograd`` never; the same run on the CPU takes the
+    autograd loop and agrees at the golden tolerance."""
+    from repro_torch.obs import telemetry
+    K, T, blocks = 24, 6, 4
+    clients, test, h, params = small_world(card, K, T)
+    kw = SPARSE_KW if path == "sparse" else dict(data_path="device")
+    cfg = SimConfig(rounds=T, local_iters=3, batch_size=4, eval_every=2,
+                    participation="sparse" if path == "sparse" else "dense",
+                    participant_bucket=K, **kw)
+    policy, cell = RandomScheme(0.25, K), CellConfig(num_clients=K)
+    n = torch.cuda.device_count()   # the blocks over every visible card
+    cards = [torch.device("cuda", i % n) for i in range(blocks)]
+
+    def run(device):
+        tel = telemetry.Telemetry()
+        monkeypatch.setattr(telemetry, "_TELEMETRY", tel)
+        on = [Dataset(c.x.to(device), c.y.to(device), 10) for c in clients]
+        ctx = placed_over(cards) if (
+            path == "placed" and device == card) else contextlib.nullcontext()
+        with ctx:
+            res = make_runner(
+                mlp_loss, mlp_accuracy, on,
+                Dataset(test.x.to(device), test.y.to(device), 10), policy,
+                cell, cfg, device=device, shard_clients=path == "placed")(
+                [{k: v.to(device) for k, v in p.items()} for p in params],
+                h.to(device))
+        c = tel.counters
+        return res, (c.get("local_sgd.kernel", 0),
+                     c.get("local_sgd.autograd", 0))
+
+    before = mlp_local_sgd_cuda.launches
+    got, on_card = run(card)
+    calls = T * (blocks if path == "placed" else 1)
+    assert on_card == (calls, 0)
+    assert mlp_local_sgd_cuda.launches == before + calls
+    want, on_cpu = run(torch.device("cpu"))
+    assert on_cpu == (0, T)
+    np.testing.assert_array_equal(got.participation, want.participation)
+    for field in ("energy_per_client", "test_acc", "test_loss"):
+        np.testing.assert_allclose(getattr(got, field), getattr(want, field),
+                                   rtol=1e-4, atol=1e-5, err_msg=field)
+    torch.testing.assert_close(got.state.global_params.cpu(),
+                               want.state.global_params, rtol=1e-4,
+                               atol=1e-5)
