@@ -98,18 +98,42 @@ def from_client_datasets(clients: Sequence[Dataset], device=None,
                                               device=device))
 
 
+def _scaled_indices(u: torch.Tensor, length) -> torch.Tensor:
+    """Uniforms ``[..., L, B]`` as int32 indices below ``length`` (``[...]``,
+    broadcast), never in the padding."""
+    n = torch.clamp(torch.as_tensor(length, device=u.device), min=1) \
+        .to(torch.float32)[..., None, None]
+    idx = torch.floor(u * n).to(torch.int32)
+    return torch.minimum(idx, (n - 1.0).to(torch.int32))
+
+
+def round_key_indices(round_key: torch.Tensor, lengths: torch.Tensor,
+                      local_iters: int, batch_size: int,
+                      stream: str = "round") -> torch.Tensor:
+    """``[K, L, B]`` int32 example indices of a round from its key
+    ``fold_in(data_key, t)``: ``uniform(round_key, (K, L, B))`` on the
+    round stream, client ``k``'s ``uniform(fold_in(round_key, k), (L, B))``
+    on the per-client one (``stream="client"``).  The engine indexes a
+    run's table of round keys (:func:`repro_torch.random.fold_in_range`)
+    and draws here, with nothing copied to the card."""
+    K = lengths.shape[0]
+    if stream == "client":
+        ks = torch.arange(K, device=lengths.device)
+        u = jr.uniform(jr.fold_in(round_key, ks), (local_iters, batch_size))
+    else:
+        u = jr.uniform(round_key, (K, local_iters, batch_size),
+                       device=lengths.device)
+    return _scaled_indices(u, lengths)
+
+
 def round_indices(data_key: torch.Tensor, t, lengths: torch.Tensor,
                   local_iters: int, batch_size: int) -> torch.Tensor:
     """``[K, L, B]`` int32 example indices for round ``t`` from
     ``fold_in(data_key, t)`` only — uniform over each client's valid rows,
     with replacement.  A tensor of rounds ``[C]`` gives ``[C, K, L, B]``,
     each row the one-round draw."""
-    K = lengths.shape[0]
-    u = jr.uniform(jr.fold_in(data_key, t), (K, local_iters, batch_size),
-                   device=lengths.device)
-    n = torch.clamp(lengths, min=1).to(torch.float32)[:, None, None]
-    idx = torch.floor(u * n).to(torch.int32)
-    return torch.minimum(idx, (n - 1.0).to(torch.int32))
+    return round_key_indices(jr.fold_in(data_key, t), lengths, local_iters,
+                             batch_size)
 
 
 def gather_round(store: DeviceDataStore, idx: torch.Tensor):
@@ -171,11 +195,8 @@ def client_round_indices(data_key: torch.Tensor, t, client_id, length,
     uniform over ``[0, length)`` with replacement and never land in the
     padding."""
     key = jr.fold_in(jr.fold_in(data_key, t), client_id)
-    u = jr.uniform(key, (local_iters, batch_size))
-    n = torch.clamp(torch.as_tensor(length, device=u.device), min=1) \
-        .to(torch.float32)[..., None, None]
-    idx = torch.floor(u * n).to(torch.int32)
-    return torch.minimum(idx, (n - 1.0).to(torch.int32))
+    return _scaled_indices(jr.uniform(key, (local_iters, batch_size)),
+                           length)
 
 
 def round_indices_client_stream(data_key: torch.Tensor, t,
@@ -184,9 +205,8 @@ def round_indices_client_stream(data_key: torch.Tensor, t,
     """Dense ``[K, L, B]`` form of the per-client stream: row ``k`` is
     exactly :func:`client_round_indices` for client ``k``, so gathering a
     subset of rows equals sampling that subset directly."""
-    ks = torch.arange(lengths.shape[0], device=lengths.device)
-    return client_round_indices(data_key, t, ks, lengths, local_iters,
-                                batch_size)
+    return round_key_indices(jr.fold_in(data_key, t), lengths, local_iters,
+                             batch_size, stream="client")
 
 
 def sample_round_client_stream(store: DeviceDataStore,

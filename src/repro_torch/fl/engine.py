@@ -17,6 +17,10 @@ changes no bit.
   "round"``) or client by client from ``fold_in(fold_in(data_key, t), k)``
   (``"client"``), bit for bit the JAX streams (:mod:`repro_torch.random`),
   so both packages realize the same masks and train on the same examples.
+  A chunk makes its round keys once, ``[C, 2]`` tables on the device
+  (:func:`~repro_torch.random.fold_in_range`), and each round indexes
+  them: no round copies a number to the card or waits for it, so the host
+  enqueues rounds ahead of the card until the run's readback.
 * **data paths** — ``"device"``: a :class:`DeviceDataStore` on the device,
   each round gathered from it; ``"prestack"``: every round's batches drawn
   up front by the per-client host iterators (:func:`stack_round_batches`);
@@ -94,8 +98,8 @@ from ..core.channel import CellConfig, rate_nats
 from ..core.selection import _schedule_policy, as_policy_fn, online_policy
 from ..data.device import (DeviceDataStore, StreamingSampler,
                            choose_data_path, data_stream_key,
-                           from_client_datasets, sample_round,
-                           sample_round_client_stream)
+                           from_client_datasets, gather_round,
+                           round_key_indices)
 from ..data.pipeline import BatchIterator, client_batches
 from ..data.synthetic import Dataset
 from ..obs.taps import (init_metrics, metrics_active, metrics_numpy,
@@ -235,18 +239,18 @@ def grant_forced_bandwidth(w: torch.Tensor, forced: torch.Tensor,
     return torch.where(forced, granted * g_scale, w * nf_scale)
 
 
-def apply_round_decision(probs: torch.Tensor, w: torch.Tensor, t: int,
-                         h_t: torch.Tensor, state: FLState,
-                         base_key: torch.Tensor, cfg: SimConfig,
-                         cell: CellConfig, num_clients: int):
+def apply_round_decision(probs: torch.Tensor, w: torch.Tensor,
+                         round_key: torch.Tensor, h_t: torch.Tensor,
+                         state: FLState, cfg: SimConfig, cell: CellConfig,
+                         num_clients: int):
     """Protocol Steps 3-4 + energy ledger given the round's (probs, w).
 
     Returns ``(mask, forced, w, e_round)``; the participation draw is
-    ``uniform(fold_in(base_key, t), (K,))``.  ``state`` is read only for
-    its ledger (``round``, ``last_tx``), and only with ``max_staleness``
-    set.  Without it, ``t`` may also be a tensor ``[T]`` of rounds with
-    ``probs``, ``w`` and ``h_t`` ``[T, K]``: every round's decision at
-    once, each row the one-round result.
+    ``uniform(round_key, (K,))``, ``round_key = fold_in(base_key, t)``.
+    ``state`` is read only for its ledger (``round``, ``last_tx``), and
+    only with ``max_staleness`` set.  Without it, ``round_key`` may also be
+    ``[T, 2]``, every round's key, with ``probs``, ``w`` and ``h_t`` ``[T,
+    K]``: every round's decision at once, each row the one-round result.
     """
     K = num_clients
     probs = probs.to(torch.float32)
@@ -256,7 +260,7 @@ def apply_round_decision(probs: torch.Tensor, w: torch.Tensor, t: int,
     if cfg.aging_boost and cfg.max_staleness is not None:
         c = torch.clamp(since.to(torch.float32) / cfg.max_staleness, 0.0, 1.0)
         probs = 1.0 - (1.0 - probs) * (1.0 - c * c)
-    u = jr.uniform(jr.fold_in(base_key, t), (K,), device=probs.device)
+    u = jr.uniform(round_key, (K,), device=probs.device)
     mask = (u < probs).to(torch.float32)
     forced = torch.zeros_like(mask, dtype=torch.bool)
     if cfg.max_staleness is not None:
@@ -278,8 +282,8 @@ def round_decision(policy_fn: Callable, t: int, h_t: torch.Tensor,
     """Protocol Steps 2-4 for one round: policy then
     :func:`apply_round_decision` (the legacy host loop's per-round path)."""
     probs, w = policy_fn(t, h_t, state)
-    return apply_round_decision(probs, w, t, h_t, state, base_key, cfg, cell,
-                                num_clients)
+    return apply_round_decision(probs, w, jr.fold_in(base_key, t), h_t, state,
+                                cfg, cell, num_clients)
 
 
 def _client_mesh(num_clients: int, device=None) -> ClientPlacement | None:
@@ -400,9 +404,10 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
                      num_clients: int, policy_fn):
     """The round transition every execution mode shares: protocol Steps
     1-5, the fault pipeline, the energy ledger, the aggregators and the
-    strided eval and the metrics taps.  ``round_step(carry, t, h_t, xb, yb,
-    pw, base_key, test_x, test_y, fp, ap) -> (carry, (mask, e_round, acc,
-    loss, did_eval, delivered, corrupt))`` for the absolute round ``t``;
+    strided eval and the metrics taps.  ``round_step(carry, t, round_key,
+    h_t, xb, yb, pw, base_key, test_x, test_y, fp, ap) -> (carry, (mask,
+    e_round, acc, loss, did_eval, delivered, corrupt))`` for the absolute
+    round ``t``, whose key ``fold_in(base_key, t)`` is ``round_key``;
     ``pw`` is the hoisted ``(probs, w)`` of the round, or ``None`` to ask
     the policy.  With the client rows placed (:class:`~repro_torch.fl.
     state.RowBlocks`, ``xb`` and ``yb`` too) the row-wise work runs a block
@@ -429,14 +434,14 @@ def _make_round_step(local_train: Callable, loss_fn: Callable,
             deltas = corrupt_deltas(deltas, corrupt, fp, faults)
         return client, deltas
 
-    def round_step(carry, t, h_t, xb, yb, pw, base_key, test_x, test_y,
-                   fp=None, ap=None):
+    def round_step(carry, t, round_key, h_t, xb, yb, pw, base_key, test_x,
+                   test_y, fp=None, ap=None):
         state, energy = carry[0], carry[1]
         devices = _run_devices(carry)
         with tel.span("round.decision", devices[:1]):
             probs, w = pw if pw is not None else policy_fn(t, h_t, state)
             mask, forced, w, e_round = apply_round_decision(
-                probs, w, t, h_t, state, base_key, cfg, cell, K)
+                probs, w, round_key, h_t, state, cfg, cell, K)
             e_base = e_round   # the decision energy, before the faults
             delivered, corrupt = mask, None
             if faults is not None:   # what lands, on the salted streams
@@ -548,12 +553,12 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
     batches ``[C, K, L, B, ...]``; ``data_mode="device"``: ``chunk(carry,
     ts, h, pw, store, data_key, base_key, test_x, test_y,
     fault_params=None, agg_params=None)`` gathers each round from the
-    store.  ``ts`` are the absolute round ids (so the ``fold_in`` streams
-    and the eval stride are a single run's), ``h`` their ``[C, K]`` gains
-    and ``pw`` their hoisted ``(probs, w)`` ``[C, K]`` each, or ``None``
-    for a policy asked round by round.  Returns ``(carry, RoundTrace)``;
-    ``chunk.hoist`` says whether the policy is hoisted.  A placed run
-    (:func:`init_carry` with a placement) takes its batches as
+    store.  ``ts`` is the range of absolute round ids (so the ``fold_in``
+    streams and the eval stride are a single run's), ``h`` their ``[C,
+    K]`` gains and ``pw`` their hoisted ``(probs, w)`` ``[C, K]`` each, or
+    ``None`` for a policy asked round by round.  Returns ``(carry,
+    RoundTrace)``; ``chunk.hoist`` says whether the policy is hoisted.  A
+    placed run (:func:`init_carry` with a placement) takes its batches as
     :class:`~repro_torch.fl.state.RowBlocks` of ``[C, K/d, ...]`` blocks,
     or a :class:`~repro_torch.fl.placement.PlacedStore`.
     """
@@ -562,8 +567,6 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
                                   acc_fn, cfg, cell, num_clients, policy_fn)
     if data_mode not in ("prestack", "device"):
         raise ValueError(f"unknown data_mode {data_mode!r}")
-    sample = (sample_round_client_stream if cfg.data_stream == "client"
-              else sample_round)
     tel = get_telemetry()
 
     def run(carry, ts, h, batches, pw, base_key, test_x, test_y,
@@ -578,11 +581,12 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
                   else agg_params)
         rows = []
         devices = _run_devices(carry)
+        round_keys = jr.fold_in_range(base_key, ts)
         for i, t in enumerate(ts):
             with tel.span("round.data", devices):
-                xb, yb = batches(i, int(t))
+                xb, yb = batches(i)
             carry, row = round_step(
-                carry, int(t), h[i], xb, yb,
+                carry, t, round_keys[i], h[i], xb, yb,
                 None if pw is None else (pw[0][i], pw[1][i]), base_key,
                 test_x, test_y, fp, ap)
             rows.append(row)
@@ -591,7 +595,7 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
     if data_mode == "prestack":
         def chunk(carry, ts, h, xb, yb, pw, base_key, test_x, test_y,
                   fault_params=None, agg_params=None):
-            def batches(i, t):
+            def batches(i):
                 if isinstance(xb, RowBlocks):
                     return (RowBlocks(b[i] for b in xb),
                             RowBlocks(b[i] for b in yb))
@@ -602,12 +606,15 @@ def build_chunk_sim(loss_fn: Callable, acc_fn: Callable, opt: Optimizer,
     else:
         def chunk(carry, ts, h, pw, store, data_key, base_key, test_x,
                   test_y, fault_params=None, agg_params=None):
-            def batches(i, t):
+            data_keys = jr.fold_in_range(data_key, ts)
+
+            def batches(i):
                 if isinstance(store, PlacedStore):
-                    return store.sample(data_key, t, cfg.local_iters,
+                    return store.sample(data_keys[i], cfg.local_iters,
                                         cfg.batch_size, cfg.data_stream)
-                return sample(store, data_key, t, cfg.local_iters,
-                              cfg.batch_size)
+                return gather_round(store, round_key_indices(
+                    data_keys[i], store.lengths, cfg.local_iters,
+                    cfg.batch_size, cfg.data_stream))
 
             return run(carry, ts, h, batches, pw, base_key, test_x, test_y,
                        fault_params, agg_params)

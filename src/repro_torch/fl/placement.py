@@ -37,8 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..data.device import (DeviceDataStore, gather_round, round_indices,
-                           round_indices_client_stream)
+from ..data.device import DeviceDataStore, gather_round, round_key_indices
 from .state import RowBlocks
 
 
@@ -101,22 +100,22 @@ class PlacedStore(NamedTuple):
     def num_clients(self) -> int:
         return self.lengths.shape[0]
 
-    def indices(self, data_key: torch.Tensor, t, local_iters: int,
+    def indices(self, round_key: torch.Tensor, local_iters: int,
                 batch_size: int, stream: str = "round") -> RowBlocks:
-        """Round ``t``'s ``[K, L, B]`` indices drawn once on the first
-        device (the unplaced draw's bits), each block's rows on its
-        device."""
-        draw = (round_indices_client_stream if stream == "client"
-                else round_indices)
-        idx = draw(data_key, t, self.lengths, local_iters, batch_size)
+        """A round's ``[K, L, B]`` indices from its key ``fold_in(data_key,
+        t)`` (:func:`~repro_torch.data.device.round_key_indices`), drawn
+        once on the first device (the unplaced draw's bits), each block's
+        rows on its device."""
+        idx = round_key_indices(round_key, self.lengths, local_iters,
+                                batch_size, stream)
         blocks = RowBlocks(b.lengths for b in self.blocks)
         return RowBlocks(blocks.slices(idx))
 
-    def sample(self, data_key: torch.Tensor, t, local_iters: int,
+    def sample(self, round_key: torch.Tensor, local_iters: int,
                batch_size: int, stream: str = "round"):
-        """Round ``t``'s batches as :class:`RowBlocks` ``([K, L, B, ...],
-        [K, L, B])``, each block gathered on its device."""
+        """A round's batches as :class:`RowBlocks` ``([K, L, B, ...], [K,
+        L, B])`` from its key, each block gathered on its device."""
         parts = [gather_round(b, i) for b, i in zip(
-            self.blocks, self.indices(data_key, t, local_iters, batch_size,
+            self.blocks, self.indices(round_key, local_iters, batch_size,
                                       stream))]
         return RowBlocks(x for x, _ in parts), RowBlocks(y for _, y in parts)

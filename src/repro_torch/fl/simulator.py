@@ -238,7 +238,7 @@ def run_simulation_legacy(init_params,
         # scheme weights; the decision is the engines'
         probs, w = policy_fn(t, h_t, state)
         mask, forced, w, e_round = apply_round_decision(
-            probs, w, t, h_t, state, base_key, cfg, cell, K)
+            probs, w, jr.fold_in(base_key, t), h_t, state, cfg, cell, K)
         e_base = e_round
         delivered = corrupt = None
         if cfg.faults is not None:

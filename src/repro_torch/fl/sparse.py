@@ -247,6 +247,7 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
         T = cfg.rounds
         dev = h_rounds.device
         ts = torch.arange(T, dtype=torch.int32, device=dev)
+        round_keys = jr.fold_in(base_key, ts)     # [T, 2]
         zeros = torch.zeros(K, dtype=torch.int32, device=dev)
         if hoist:
             probs_all, w_all = policy_fn(ts, h_rounds, None)
@@ -255,7 +256,7 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
             tsc = ts[:, None]
             view = _DecisionView(round=tsc, last_tx=zeros)   # never read
             mask, _, _, e_all = apply_round_decision(
-                probs_all, w_all, ts, h_rounds, view, base_key, cfg, cell, K)
+                probs_all, w_all, round_keys, h_rounds, view, cfg, cell, K)
             fire = mask > 0
             # the ledgers before round t as exclusive cumulative maxima:
             # last_tx = max{s < t : fired at s} (0 if none), anchor slot =
@@ -282,7 +283,7 @@ def build_participation_program(policy_fn, cfg, cell: CellConfig,
             probs, w = ((probs_all[t], w_all[t]) if hoist
                         else policy_fn(t, h_t, view))
             mask, forced, _, e_round = apply_round_decision(
-                probs, w, t, h_t, view, base_key, cfg, cell, K)
+                probs, w, round_keys[t], h_t, view, cfg, cell, K)
             e_base = e_round
             delivered = corrupt = None
             if faults is not None:   # the dense engine's salted streams

@@ -93,14 +93,26 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
     Keys ``[..., 2]`` and ``data`` (a number or a tensor) broadcast
     together: the result is ``[..., 2]``, each key ``jax.random.fold_in``
-    of its key and datum, as ``jax.vmap`` of it gives."""
+    of its key and datum, as ``jax.vmap`` of it gives.  A number enters
+    the hash as a scalar operand, so no tensor is made of it (on a card, no
+    host-to-device copy and no wait for the stream)."""
     if isinstance(data, torch.Tensor):
         d = data.to(device=key.device, dtype=torch.int64) & MASK
+        zero = torch.zeros_like(d)
     else:
-        d = torch.tensor(int(data) & MASK, dtype=torch.int64,
-                         device=key.device)
-    b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+        d, zero = int(data) & MASK, 0
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], zero, d)
     return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in_range(key: torch.Tensor, ts: range) -> torch.Tensor:
+    """``fold_in(key, t)`` for every ``t`` of the range ``ts`` at once,
+    ``[..., len(ts), 2]`` for keys ``[..., 2]``: the counters are a
+    ``torch.arange`` made on the key's device, so a run's round keys are
+    one table, made once, that each round indexes."""
+    ids = torch.arange(ts.start, ts.stop, ts.step, dtype=torch.int64,
+                       device=key.device)
+    return fold_in(key[..., None, :], ids)
 
 
 def split(key: torch.Tensor, num=2) -> torch.Tensor:
@@ -124,10 +136,13 @@ def _as_f32(bits: torch.Tensor) -> torch.Tensor:
 
 def _bits_to_uniform(bits: torch.Tensor, minval: float,
                      maxval: float) -> torch.Tensor:
+    """``max(lo, f · (hi − lo) + lo)`` for the floats ``f`` in [0, 1) of
+    the bits, with ``lo``, ``hi`` and ``hi − lo`` rounded to float32 as
+    JAX's float32 operands: Python scalars of those exact values, so no
+    tensor is made of the bounds."""
     floats = _as_f32((bits >> 9) | _ONE_BITS) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.clamp(floats * float(hi - lo) + float(lo), min=float(lo))
 
 
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,

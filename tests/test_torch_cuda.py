@@ -7,9 +7,10 @@ stream sampler's pinned side-stream copy, ``shard_store`` on the card
 against the CPU, tapped runs on the three paths (tapped = untapped, card =
 CPU, taps included), the legacy loop against the dense engine, the
 card's memory snapshot, profile and ``timed_compile``, the round-phase
-spans timed on the card under a profiler, and the MLP's local-SGD kernel
+spans timed on the card under a profiler, the MLP's local-SGD kernel
 (``mlp_sgd``) against its plain version and inside dense, sparse and
-placed runs.
+placed runs, and the dense round loop, unplaced and placed, under
+``torch.cuda.set_sync_debug_mode("error")`` (no host sync in it).
 
 Every test here is marked ``cuda`` and skips where there is no card.  This
 file imports neither JAX nor the JAX package, so it also runs on a host that
@@ -35,7 +36,7 @@ from repro_torch.data import (Dataset, DeviceDataStore, StreamingSampler,
                               make_mnist_like, shard_noniid, shard_store,
                               stack_rounds_reference)
 from repro_torch.fl import (AggregatorConfig, ClientPlacement, FaultConfig,
-                            GuardConfig, SchemeSpec, SimConfig,
+                            GuardConfig, RowBlocks, SchemeSpec, SimConfig,
                             guarded_aggregate,
                             make_runner, make_sparse_runner, run_resumable,
                             run_scheme_matrix, run_simulation,
@@ -838,3 +839,82 @@ def test_mlp_runs_take_the_kernel_on_the_card(card, path, monkeypatch):
     torch.testing.assert_close(got.state.global_params.cpu(),
                                want.state.global_params, rtol=1e-4,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the dense round loop enqueues without waiting for the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def watch_rounds(monkeypatch):
+    """``torch.cuda.set_sync_debug_mode("error")`` from the moment a dense
+    run's carry is made (``init_carry``) to its readback (``_to_result``):
+    a host-to-device copy of a number or a wait for the card in the round
+    loop raises.  Yields the list of watched runs."""
+    watched = []
+    init, readback = E.init_carry, E._to_result
+
+    def init_then_watch(*args, **kw):
+        carry = init(*args, **kw)
+        torch.cuda.set_sync_debug_mode("error")
+        watched.append(True)
+        return carry
+
+    def unwatch_then_read(*args, **kw):
+        torch.cuda.set_sync_debug_mode(0)
+        return readback(*args, **kw)
+
+    monkeypatch.setattr(E, "init_carry", init_then_watch)
+    monkeypatch.setattr(E, "_to_result", unwatch_then_read)
+    try:
+        yield watched
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("blocks", [1, 4])
+def test_dense_round_loop_has_no_host_sync(card, watch_rounds, blocks):
+    """A dense run at K 1,000 (the paper's MLP through ``mlp_sgd``, the
+    device store, evals) unplaced and over 4 virtual blocks of the card,
+    its round loop watched: nothing raises, and the masks, eval rounds and
+    ``last_tx`` equal the same run's on the CPU."""
+    K, T, N = 1000, 6, 16
+    torch.cuda.set_sync_debug_mode("error")
+    try:   # the watch is armed on this build: a pageable copy raises
+        with pytest.raises(RuntimeError):
+            torch.tensor(1, device=card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    gen = torch.Generator().manual_seed(K)
+    store = DeviceDataStore(
+        torch.randn(K, N, 784, generator=gen),
+        torch.randint(0, 10, (K, N), generator=gen, dtype=torch.int32),
+        torch.randint(4, N + 1, (K,), generator=gen, dtype=torch.int32))
+    test = Dataset(store.x[:256, 0], store.y[:256, 0], 10)
+    h = torch.rand(K, T, generator=gen) * 9.9e-13 + 1e-14
+    params = init_mlp(jr.PRNGKey(4), device="cpu")
+    cfg = SimConfig(rounds=T, local_iters=2, batch_size=10, eval_every=2,
+                    eval_batch=256, data_path="device")
+    policy, cell = RandomScheme(0.1, K), CellConfig(num_clients=K)
+
+    def run(device):
+        on = DeviceDataStore(*(v.to(device) for v in store))
+        return make_runner(
+            mlp_loss, mlp_accuracy, on,
+            Dataset(test.x.to(device), test.y.to(device), 10), policy, cell,
+            cfg, device=device, shard_clients=blocks > 1)(
+            [{k: v.to(device) for k, v in p.items()} for p in params],
+            h.to(device))
+
+    ctx = placed_over([card] * blocks) if blocks > 1 \
+        else contextlib.nullcontext()
+    with ctx:
+        got = run(card)
+    assert len(watch_rounds) == 1
+    if blocks > 1:
+        assert isinstance(got.state.client_params, RowBlocks)
+        assert len(got.state.client_params) == blocks
+    want = run(torch.device("cpu"))
+    np.testing.assert_array_equal(got.participation, want.participation)
+    np.testing.assert_array_equal(got.eval_rounds, want.eval_rounds)
+    assert torch.equal(got.state.last_tx.cpu(), want.state.last_tx)

@@ -378,8 +378,8 @@ def test_placed_store_and_draw_are_the_unplaced_rows(world, d, stream):
     key = data_stream_key(0, device="cpu")
     for t in range(T):
         idx = draw(key, t, store.lengths, 2, 8)
-        rows = ps.indices(key, t, 2, 8, stream)
-        xs, ys = ps.sample(key, t, 2, 8, stream)
+        rows = ps.indices(jr.fold_in(key, t), 2, 8, stream)
+        xs, ys = ps.sample(jr.fold_in(key, t), 2, 8, stream)
         x, y = gather_round(store, idx)
         for s in range(d):
             assert torch.equal(rows[s], idx[s * n:(s + 1) * n])

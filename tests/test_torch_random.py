@@ -1,5 +1,7 @@
 """The port's threefry2x32 (repro_torch.random) against jax.random: keys,
-bits, uniforms, randint and exponentials bit for bit, normals to a few ulps.
+bits, uniforms, randint and exponentials bit for bit, normals to a few ulps;
+a run's table of round keys against ``fold_in`` of each round, and
+uniform's scalar bounds against 0-dim float32 tensor bounds, bit for bit.
 """
 import _torch_threads  # noqa: F401  (first: sets PyTorch's threads)
 import jax
@@ -171,3 +173,72 @@ def test_batched_uniform_and_bits_match_vmap(shape):
     want = jax.vmap(lambda k: jax.random.bits(k, shape, jnp.uint32))(flat)
     np.testing.assert_array_equal(jr.random_bits(tkeys, shape).numpy(),
                                   _jax(want).reshape((3, 4) + shape))
+
+
+# ---------------------------------------------------------------------------
+# a run's round keys and uniform's bounds, made with no tensor of a number
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("ts", [range(20), range(2**32 - 3, 2**32),
+                                range(7, 40, 4)])
+def test_fold_in_range_is_fold_in_of_each_round(seed, ts):
+    """The ``[T, 2]`` table of a run's round keys: row i is ``fold_in(key,
+    ts[i])`` with the round a number, up to 2³² − 1; batched keys give
+    ``[..., T, 2]``."""
+    key = jr.PRNGKey(seed)
+    table = jr.fold_in_range(key, ts)
+    assert table.shape == (len(ts), 2) and table.dtype == torch.int64
+    for i, t in enumerate(ts):
+        assert torch.equal(table[i], jr.fold_in(key, t)), t
+    keys = jr.split(key, (2, 3))
+    table = jr.fold_in_range(keys, ts)
+    assert table.shape == (2, 3, len(ts), 2)
+    for i, t in enumerate(ts):
+        assert torch.equal(table[:, :, i], jr.fold_in(keys, t)), t
+    want = jax.vmap(lambda t: jax.random.fold_in(
+        jax.random.PRNGKey(seed), t))(np.asarray(ts, np.uint32))
+    np.testing.assert_array_equal(jr.fold_in_range(key, ts).numpy(),
+                                  _jax(want))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_tensor_datum_is_the_number_path(seed):
+    """A datum as a 0-dim tensor (int64, int32) or a vector gives the
+    number's key, mod 2³² as the number path takes it."""
+    key = jr.PRNGKey(seed)
+    data = [0, 1, 7, 0x0DA7A, 2**31 - 1, 2**31, 2**32 - 1, 2**32 + 5, -1]
+    for d in data:
+        want = jr.fold_in(key, d)
+        assert torch.equal(jr.fold_in(key, torch.tensor(d)), want), d
+        if -2**31 <= d < 2**31:
+            assert torch.equal(
+                jr.fold_in(key, torch.tensor(d, dtype=torch.int32)), want), d
+    batched = jr.fold_in(key, torch.tensor(data))
+    for i, d in enumerate(data):
+        assert torch.equal(batched[i], jr.fold_in(key, d)), d
+
+
+def _uniform_tensor_bounds(key, shape, lo, hi):
+    """uniform with its bounds made 0-dim float32 tensors, ``hi − lo``
+    taken between them."""
+    bits = jr.random_bits(key, shape)
+    floats = jr._as_f32((bits >> 9) | jr._ONE_BITS) - 1.0
+    lo_t = torch.tensor(lo, dtype=torch.float32)
+    hi_t = torch.tensor(hi, dtype=torch.float32)
+    return torch.maximum(lo_t, floats * (hi_t - lo_t) + lo_t)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", [
+    (0.0, 1.0), (-1.0, 1.0), (1e-6, 3.5),
+    # normal's and gumbel's: hi − lo rounds in float32
+    (float(np.nextafter(np.float32(-1.0), np.float32(0.0))), 1.0),
+    (float(np.finfo(np.float32).tiny), 1.0)])
+def test_uniform_scalar_bounds_are_the_tensor_bounds(seed, lo, hi):
+    """Bit for bit the draw with tensor bounds (the JAX comparison is
+    ``test_uniform_range_bit_exact``'s)."""
+    key = jr.PRNGKey(seed)
+    got = jr.uniform(key, (4096,), minval=lo, maxval=hi).numpy()
+    want = _uniform_tensor_bounds(key, (4096,), lo, hi).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
